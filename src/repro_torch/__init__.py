@@ -1,0 +1,24 @@
+"""APSQ port to PyTorch + hand-written CUDA kernels for NVIDIA Hopper.
+
+A second package beside the JAX reference ``repro``: the same subpackage
+and function names (``core``, ``kernels``, ``exec``, ``models``,
+``serving``, ``quant``, ``configs``), so every ported module has a
+reference of the same name.  It imports ``torch`` and numpy only.
+
+The integer hot path — the APSQ GEMM (generic grid, m=1 decode form,
+INT32-accumulator W8A8 baseline) and flash-decode attention over the
+paged INT8 KV cache — runs on CUDA C++ kernels under
+``repro_torch/kernels/*/csrc``, built with ``nvcc`` at first use and
+bound through ``ctypes``.  Each kernel keeps a plain PyTorch version in
+the same module, which its wrapper uses only for tensors on the CPU.
+
+Entry points run on ``cuda`` unless the caller passes ``device="cpu"``
+(``repro_torch.device.resolve_device``).
+
+This first slice covers the dense decoder's production path:
+``init_lm`` -> ``calibrate_model`` -> ``export_quantized`` ->
+``PagedServingEngine.from_exported`` -> ``run``.
+"""
+from .device import resolve_device
+
+__all__ = ["resolve_device"]

@@ -1,0 +1,30 @@
+"""Architecture registry of the port (the architectures it serves)."""
+from __future__ import annotations
+
+import importlib
+
+_MODULES = {"tinyllama-1.1b": "tinyllama_1_1b"}
+
+ARCH_NAMES = tuple(_MODULES)
+
+
+def _module(name: str):
+    if name not in _MODULES:
+        raise KeyError(f"unknown arch {name!r}; the port has {ARCH_NAMES}")
+    return importlib.import_module(f"repro_torch.configs.{_MODULES[name]}")
+
+
+def get_config(name: str, quant=None):
+    """Full published config, optionally with a ``QuantConfig`` or
+    ``QuantPolicy``."""
+    cfg = _module(name).CONFIG
+    if quant is not None:
+        cfg = cfg.with_quant(quant)
+    return cfg.validate()
+
+
+def get_smoke(name: str):
+    return _module(name).smoke_config().validate()
+
+
+__all__ = ["ARCH_NAMES", "get_config", "get_smoke"]

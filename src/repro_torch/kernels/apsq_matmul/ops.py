@@ -1,0 +1,92 @@
+"""Wrappers of the APSQ GEMM kernels (port of ``kernels/apsq_matmul/ops.py``).
+
+A tensor on the CPU goes to the plain version (``ref``); a CUDA tensor
+goes to the hand-written kernel in ``csrc/apsq_matmul.cu`` or raises.
+There is no fallback between the two.  The wrapper zero-pads ragged
+``K % n_p`` (``ref.pad_ragged_k``), checks types and shapes, allocates
+the output, launches on the current stream and counts the launch.
+"""
+from __future__ import annotations
+
+import torch
+
+from .. import _build
+from . import ref
+
+# Largest number of live INT8 bank codes per output element the kernel
+# keeps in registers (two packed 64-bit words).
+MAX_BANKS = 16
+
+
+def _check_operands(x_codes, w_codes):
+    if x_codes.dtype != torch.int8 or w_codes.dtype != torch.int8:
+        raise TypeError("APSQ GEMM takes int8 codes, got "
+                        f"{x_codes.dtype} and {w_codes.dtype}")
+    if x_codes.dim() != 2 or w_codes.dim() != 2 \
+            or x_codes.shape[1] != w_codes.shape[0]:
+        raise ValueError(f"shapes {tuple(x_codes.shape)} @ "
+                         f"{tuple(w_codes.shape)} do not form [M,K] @ [K,N]")
+    if x_codes.device != w_codes.device:
+        raise ValueError("operands on different devices")
+
+
+def apsq_matmul_int8(x_codes: torch.Tensor, w_codes: torch.Tensor,
+                     exps: torch.Tensor, *, gs: int) -> torch.Tensor:
+    """INT8 GEMM with Algorithm-1 PSUM handling -> INT32 [M, N].
+
+    ``n_p`` is ``exps.shape[0]``; ``exps`` is [n_p] or [n_p, N].  M == 1
+    takes the decode kernel (``apsq_matmul_m1``), any other M the
+    generic one (``apsq_matmul``); both are bit-identical to ``ref``.
+    """
+    _check_operands(x_codes, w_codes)
+    n_p = int(exps.shape[0])
+    if x_codes.device.type == "cpu":
+        return ref.apsq_matmul_ref(x_codes, w_codes, exps, n_p=n_p, gs=gs)
+    m, n = x_codes.shape[0], w_codes.shape[1]
+    if exps.dim() == 2 and tuple(exps.shape) != (n_p, n):
+        raise ValueError(f"exps {tuple(exps.shape)} != [n_p, N]=({n_p}, {n})")
+    gs_eff = min(int(gs), n_p)   # gs >= n_p is PSQ: one group over all tiles
+    if gs_eff < 1 or gs_eff > MAX_BANKS:
+        raise ValueError(f"gs={gs} (n_p={n_p}): the CUDA kernel keeps at "
+                         f"most {MAX_BANKS} bank codes")
+    x_codes, w_codes = ref.pad_ragged_k(x_codes, w_codes, n_p)
+    x = x_codes.contiguous()
+    w = w_codes.contiguous()
+    e = exps.to(device=x.device, dtype=torch.int32).contiguous()
+    bk = x.shape[1] // n_p
+    out = torch.empty((m, n), dtype=torch.int32, device=x.device)
+    if m == 0 or n == 0:
+        return out
+    stream = _build.stream_ptr(x.device)
+    if m == 1:
+        err = _build.entry("apsq_matmul_m1")(
+            x.data_ptr(), w.data_ptr(), e.data_ptr(), out.data_ptr(),
+            n, n_p, bk, gs_eff, int(e.dim() == 2), stream)
+        _build.check(err, "apsq_matmul_m1")
+    else:
+        err = _build.entry("apsq_matmul")(
+            x.data_ptr(), w.data_ptr(), e.data_ptr(), out.data_ptr(),
+            m, n, n_p, bk, gs_eff, int(e.dim() == 2), stream)
+        _build.check(err, "apsq_matmul")
+    return out
+
+
+def baseline_matmul_int8(x_codes: torch.Tensor,
+                         w_codes: torch.Tensor) -> torch.Tensor:
+    """INT32-accumulator W8A8 GEMM -> INT32 [M, N] (layers without PSUM
+    exponents; the paper's INT32-PSUM baseline)."""
+    _check_operands(x_codes, w_codes)
+    if x_codes.device.type == "cpu":
+        return ref.baseline_matmul_ref(x_codes, w_codes)
+    x = x_codes.contiguous()
+    w = w_codes.contiguous()
+    m, k = x.shape
+    n = w.shape[1]
+    out = torch.empty((m, n), dtype=torch.int32, device=x.device)
+    if m == 0 or n == 0:
+        return out
+    err = _build.entry("baseline_matmul")(
+        x.data_ptr(), w.data_ptr(), out.data_ptr(), m, n, k,
+        _build.stream_ptr(x.device))
+    _build.check(err, "baseline_matmul")
+    return out

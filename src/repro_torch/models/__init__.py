@@ -1,0 +1,13 @@
+"""Model assembly (port of ``repro.models``, dense decoder)."""
+from .config import ModelConfig
+from .model import (apply_layer, apply_unit, decode_horizon_paged,
+                    decode_step_paged, embed_inputs, forward,
+                    forward_paged_chunk, init_lm, init_paged_decode_state,
+                    logits_from_hidden, paged_state_axes)
+
+__all__ = [
+    "ModelConfig", "apply_layer", "apply_unit", "decode_horizon_paged",
+    "decode_step_paged", "embed_inputs", "forward", "forward_paged_chunk",
+    "init_lm", "init_paged_decode_state", "logits_from_hidden",
+    "paged_state_axes",
+]

@@ -1,0 +1,130 @@
+"""Shared building blocks (port of ``repro/models/common.py``, dense path).
+
+Params are nested dicts of tensors.  Every projection goes through
+``dense``, which dispatches on the layer's state: a ``QuantState`` runs
+W8A8 (+ PSQ/APSQ) fake quant, a ``DeployedQuantState`` the integer path
+through ``repro_torch.exec``, no state a plain float GEMM.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core import (DeployedQuantState, QuantState, deployed_dense,
+                              quant_dense, quant_params_init)
+from repro_torch.quant.policy import resolve_quant
+
+Params = dict
+
+
+def init_linear(gen: torch.Generator, shape, dtype, *, device, quant=None,
+                name: str = "", scale: float | None = None) -> Params:
+    """Fan-in normal weight [K, *out] plus, when the policy quantizes
+    ``name``, its ``QuantState``."""
+    scale = scale if scale is not None else 1.0 / math.sqrt(shape[0])
+    w = (torch.randn(shape, generator=gen, dtype=torch.float32,
+                     device=device) * scale).to(dtype)
+    p = {"w": w}
+    resolved = resolve_quant(quant, name)
+    if resolved is not None:
+        p["qp"] = quant_params_init(w.reshape(shape[0], -1).float(),
+                                    resolved, name=name)
+    return p
+
+
+def dense(p: Params, x: torch.Tensor, *, tap: list | None = None,
+          backend=None) -> torch.Tensor:
+    """x[..., K] @ w[K, *out] as the layer's state says."""
+    qp = p.get("qp")
+    if isinstance(qp, DeployedQuantState):
+        return deployed_dense(x, qp, backend=backend)
+    w = p["w"]
+    w2d = w.reshape(w.shape[0], -1)
+    if isinstance(qp, QuantState):
+        y = quant_dense(x, w2d, qp, tap=tap)
+    else:
+        y = x @ w2d.to(x.dtype)
+    return y.reshape(tuple(x.shape[:-1]) + tuple(w.shape[1:]))
+
+
+def init_norm(dim: int, dtype, *, device) -> Params:
+    return {"scale": torch.ones((dim,), dtype=dtype, device=device)}
+
+
+def apply_norm(p: Params, x: torch.Tensor, kind: str = "rmsnorm",
+               eps: float = 1e-6) -> torch.Tensor:
+    """RMSNorm in float32, result in x's dtype."""
+    if kind != "rmsnorm":
+        raise NotImplementedError(f"norm {kind!r} is not ported yet")
+    xf = x.float()
+    xf = xf * torch.rsqrt((xf * xf).mean(dim=-1, keepdim=True) + eps)
+    return (xf * p["scale"].float()).to(x.dtype)
+
+
+def init_embedding(gen: torch.Generator, vocab: int, dim: int, dtype, *,
+                   device) -> Params:
+    return {"table": (torch.randn((vocab, dim), generator=gen,
+                                  dtype=torch.float32, device=device)
+                      * (1.0 / math.sqrt(dim))).to(dtype)}
+
+
+def embed(p: Params, tokens: torch.Tensor) -> torch.Tensor:
+    """Token lookup: table[tokens]."""
+    return p["table"][tokens]
+
+
+def rope_frequencies(head_dim: int, fraction: float, theta: float, *,
+                     device=None):
+    """Inverse frequencies for the rotary slice of the head."""
+    rot_dim = int(head_dim * fraction)
+    rot_dim -= rot_dim % 2
+    inv = 1.0 / (theta ** (torch.arange(0, rot_dim, 2, dtype=torch.float32,
+                                        device=device) / rot_dim))
+    return inv, rot_dim
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, *,
+               fraction: float = 1.0, theta: float = 10000.0) -> torch.Tensor:
+    """Rotary embedding over INTERLEAVED pairs (x[..., 0::2], x[..., 1::2]),
+    the JAX package's layout (not the half-split one).
+
+    x: [..., S, H, head_dim]; positions broadcastable to [..., S].
+    """
+    head_dim = x.shape[-1]
+    inv, rot_dim = rope_frequencies(head_dim, fraction, theta,
+                                    device=x.device)
+    if rot_dim == 0:
+        return x
+    xr, xp = x[..., :rot_dim], x[..., rot_dim:]
+    ang = positions[..., None].float() * inv
+    sin = torch.sin(ang)[..., None, :]
+    cos = torch.cos(ang)[..., None, :]
+    x1 = xr[..., 0::2].float()
+    x2 = xr[..., 1::2].float()
+    o1 = x1 * cos - x2 * sin
+    o2 = x2 * cos + x1 * sin
+    out = torch.stack([o1, o2], dim=-1).reshape(xr.shape).to(x.dtype)
+    return torch.cat([out, xp], dim=-1) if xp.shape[-1] else out
+
+
+def init_mlp(gen: torch.Generator, d_model: int, d_ff: int, dtype, *,
+             device, quant=None, name: str = "") -> Params:
+    kw = dict(device=device, quant=quant)
+    return {"wi": init_linear(gen, (d_model, d_ff), dtype, name=f"{name}.wi",
+                              **kw),
+            "wg": init_linear(gen, (d_model, d_ff), dtype, name=f"{name}.wg",
+                              **kw),
+            "wo": init_linear(gen, (d_ff, d_model), dtype, name=f"{name}.wo",
+                              **kw)}
+
+
+def apply_mlp(p: Params, x: torch.Tensor, kind: str = "swiglu", *,
+              tap: list | None = None, backend=None) -> torch.Tensor:
+    """SwiGLU: wo(silu(wg x) * wi x)."""
+    if kind != "swiglu":
+        raise NotImplementedError(f"mlp {kind!r} is not ported yet")
+    h = (F.silu(dense(p["wg"], x, tap=tap, backend=backend))
+         * dense(p["wi"], x, tap=tap, backend=backend))
+    return dense(p["wo"], h, tap=tap, backend=backend)

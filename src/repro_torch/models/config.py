@@ -1,0 +1,88 @@
+"""ModelConfig (port of ``repro/models/config.py``, dense fields).
+
+The JAX dataclass's field names, for the fields the dense decoder reads
+(``block_pattern=("attn",)``, rmsnorm, swiglu, untied head).  The JAX
+package's ``scan_layers`` has no counterpart: the port always holds
+units as ``{"u0": ..., "u1": ...}`` and loops over them.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from repro_torch.core import QuantConfig
+
+BLOCK_KINDS = ("attn", "local", "rwkv", "rglru")
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+           "float16": torch.float16}
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str                       # dense|moe|ssm|hybrid|encdec|vlm
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab: int
+    head_dim: int | None = None
+    norm: str = "rmsnorm"             # rmsnorm | layernorm
+    mlp: str = "swiglu"               # swiglu | gelu | moe | rwkv_cm
+    block_pattern: tuple = ("attn",)
+    rope_fraction: float = 1.0
+    rope_theta: float = 10000.0
+    tie_embeddings: bool = False
+    dtype: str = "bfloat16"
+    quant: QuantConfig = dataclasses.field(default_factory=QuantConfig)
+    quant_policy: object | None = None
+
+    @property
+    def hd(self) -> int:
+        return self.head_dim or self.d_model // self.n_heads
+
+    @property
+    def torch_dtype(self) -> torch.dtype:
+        return _DTYPES[self.dtype]
+
+    @property
+    def n_units(self) -> int:
+        return self.n_layers // len(self.block_pattern)
+
+    @property
+    def policy(self):
+        """The per-layer quantization policy driving param init."""
+        if self.quant_policy is not None:
+            return self.quant_policy
+        if self.quant.enabled:
+            from repro_torch.quant.policy import QuantPolicy
+            return QuantPolicy.uniform(self.quant)
+        return None
+
+    def with_quant(self, quant) -> "ModelConfig":
+        """Set a global ``QuantConfig`` or a per-layer ``QuantPolicy``."""
+        if isinstance(quant, QuantConfig):
+            return dataclasses.replace(self, quant=quant, quant_policy=None)
+        return dataclasses.replace(self, quant_policy=quant)
+
+    def scaled(self, **kw) -> "ModelConfig":
+        return dataclasses.replace(self, **kw)
+
+    def validate(self):
+        assert self.n_heads % max(self.n_kv_heads, 1) == 0
+        for k in self.block_pattern:
+            assert k in BLOCK_KINDS, k
+        return self
+
+    def check_ported(self):
+        """Raise for what this slice of the port does not serve yet."""
+        if (self.family != "dense" or self.block_pattern != ("attn",)
+                or self.mlp != "swiglu" or self.norm != "rmsnorm"
+                or self.tie_embeddings):
+            raise NotImplementedError(
+                f"{self.name}: the port serves dense attn/rmsnorm/swiglu "
+                "decoders with an untied head only so far")
+        return self

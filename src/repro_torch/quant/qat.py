@@ -1,0 +1,93 @@
+"""Capture-based calibration (port of ``calibrate_model`` and
+``policy_presets`` in ``repro/quant/qat.py``, dense branch).
+
+``calibrate_model`` runs the model one unit at a time with fake-quant
+linears.  ``quant_dense`` appends a ``TapRecord`` per linear to the
+capture list; each captured ``QuantState`` is refined by
+``calibrate_dense`` (activation scale + running-accumulation PSUM
+scales).  Two passes per unit: the second re-captures with the first
+pass's scales, so a linear downstream of another quantized linear in the
+same unit (the MLP's ``wo``) sees calibrated inputs.  Each unit is then
+re-applied with its calibrated scales before the next unit is captured.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core import QuantConfig, QuantState, calibrate_dense
+from .policy import QuantPolicy
+
+
+def _replace_quant_states(tree, calibrated: dict):
+    """Swap every ``QuantState`` whose name is in ``calibrated``."""
+    if isinstance(tree, QuantState):
+        return calibrated.get(tree.name, tree)
+    if isinstance(tree, dict):
+        return {k: _replace_quant_states(v, calibrated)
+                for k, v in tree.items()}
+    return tree
+
+
+def _calibrate_from_taps(taps, sample_tokens: int) -> dict:
+    out = {}
+    for rec in taps:
+        if rec.name in out:
+            continue
+        out[rec.name] = calibrate_dense(rec.qp, rec.x[:sample_tokens], rec.w)
+    return out
+
+
+def _calibrate_block(apply_fn, block_params, sample_tokens: int,
+                     passes: int = 2):
+    """Capture -> calibrate ``passes`` times over one block."""
+    new_params = block_params
+    for _ in range(passes):
+        taps: list = []
+        apply_fn(new_params, taps)
+        calibrated = _calibrate_from_taps(taps, sample_tokens)
+        new_params = _replace_quant_states(new_params, calibrated)
+    return new_params
+
+
+@torch.no_grad()
+def calibrate_model(params, cfg, batch: dict,
+                    sample_tokens: int = 512):
+    """Refine every quantized linear's (ax, ap) from one forward pass.
+
+    Pure: returns a new params tree.  ``batch["tokens"]`` [B, S] int
+    (numpy or a tensor) on any device; it moves to the params' device.
+    """
+    # lazy: models import quant.policy
+    from repro_torch.models.model import apply_unit, embed_inputs
+    device = params["embed"]["table"].device
+    tokens = torch.as_tensor(batch["tokens"], device=device).long()
+    new_params = dict(params)
+    x = embed_inputs(params, cfg, tokens)
+    new_units = {}
+    for i in range(len(params["units"])):
+        key = f"u{i}"
+        new_unit = _calibrate_block(
+            lambda pp, tap, _x=x: apply_unit(pp, _x, cfg=cfg, pos=0,
+                                             tap=tap),
+            params["units"][key], sample_tokens)
+        x, _ = apply_unit(new_unit, x, cfg=cfg, pos=0)
+        new_units[key] = new_unit
+    new_params["units"] = new_units
+    return new_params
+
+
+def policy_presets() -> dict:
+    """Named heterogeneous per-layer policies (the dense ones of the JAX
+    package's ``policy_presets``)."""
+    apsq = QuantConfig.apsq
+    return {
+        # attention projections tight (small gs), FFN loose (bigger gs)
+        "mix2_ffn4": QuantPolicy.of(
+            ("*.mix.*", apsq(gs=2, n_p=4)),
+            ("*.ffn.*", apsq(gs=4, n_p=8)),
+            default=QuantConfig.w8a8()),
+        # PSUM-quantize only the FFN (attention stays plain W8A8)
+        "ffn_only": QuantPolicy.of(
+            ("*.ffn.*", apsq(gs=2, n_p=8)),
+            default=QuantConfig.w8a8()),
+    }
