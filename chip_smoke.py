@@ -34,9 +34,13 @@ Phases (each exits non-zero on failure):
   w8a8       a full-width 2-layer model under the ffn_only policy, so the
              W8A8 baseline kernel serves the attention projections.
 
-Launch counts are zeroed just before ``serve`` and before ``w8a8`` and read
-just after; every kernel of each path must have launched.  The line
-before the last holds the per-kernel record; the last line is
+The main path runs in two configurations, each its own path: ``serve``
+(mix2_ffn4: every layer APSQ) and ``w8a8`` (ffn_only: W8A8 attention
+projections).  Launch counts are zeroed just before each and read just
+after; every kernel of each path must have launched.  The line before the
+last holds the per-kernel record: ``launches`` is the count of the path
+named in ``path``, ``launches_by_path`` each path's own count (never a
+sum).  The last line is
 ``{"ok": true, "device": {...}}``.  Details go to
 ``chiprun_out/chip_smoke.json``.
 """
@@ -56,18 +60,23 @@ INT8_OPS_PER_S = 1979e12       # H100 SXM int8 tensor cores, dense
 F32_OPS_PER_S = 67e12          # H100 SXM float32 outside the tensor cores
 PHASES = ("build", "kernels", "reference", "serve", "w8a8")
 
+# kernel -> (source, TPU kernel it replaces, the path whose zeroed run
+# gives its "launches": serve = mix2_ffn4 at 22 layers, w8a8 = ffn_only)
 SOURCES = {
     "apsq_matmul": ("src/repro_torch/kernels/apsq_matmul/csrc/apsq_matmul.cu",
-                    "src/repro/kernels/apsq_matmul/kernel.py:214"),
+                    "src/repro/kernels/apsq_matmul/kernel.py:214", "serve"),
     "apsq_matmul_m1": ("src/repro_torch/kernels/apsq_matmul/csrc/"
                        "apsq_matmul.cu",
-                       "src/repro/kernels/apsq_matmul/kernel.py:294"),
+                       "src/repro/kernels/apsq_matmul/kernel.py:294",
+                       "serve"),
     "baseline_matmul": ("src/repro_torch/kernels/apsq_matmul/csrc/"
                         "apsq_matmul.cu",
-                        "src/repro/kernels/apsq_matmul/kernel.py:509"),
+                        "src/repro/kernels/apsq_matmul/kernel.py:509",
+                        "w8a8"),
     "int8_kv_attention": ("src/repro_torch/kernels/int8_kv_attention/csrc/"
                           "int8_kv_attention.cu",
-                          "src/repro/kernels/int8_kv_attention/kernel.py:93"),
+                          "src/repro/kernels/int8_kv_attention/kernel.py:93",
+                          "serve"),
 }
 
 
@@ -236,6 +245,47 @@ def gemm_checks(torch, records: dict) -> list:
                 records["baseline_matmul"] = dict(
                     row["baseline_matmul"], shape=f"M={m} K={k} N={n}")
             del ws
+    # torch._int_mm refuses M <= 16, so the baseline's library yardstick
+    # is taken at M = 32 (the smallest multiple of 8 it accepts), where
+    # the kernel, its plain version and _int_mm run on the same inputs
+    for k, n in ((2048, 2048), (2048, 5632), (5632, 2048)):
+        m = 32
+        copies = max(1, math.ceil(120e6 / (k * n)))
+        ws = [torch.randint(-128, 128, (k, n), generator=gen, device=dev,
+                            dtype=torch.int8) for _ in range(copies)]
+        x = torch.randint(-128, 128, (m, k), generator=gen, device=dev,
+                          dtype=torch.int8)
+        got_b = ops.baseline_matmul_int8(x, ws[0])
+        want_b = ref.baseline_matmul_ref(x, ws[0])
+        torch.cuda.synchronize()
+        err_b = int((got_b.long() - want_b.long()).abs().max())
+        if err_b:
+            errors.append(f"GEMM M={m} K={k} N={n}: baseline max|err|="
+                          f"{err_b}")
+        t_kb, e_kb = both_ms(torch, lambda i: ops.baseline_matmul_int8(
+            x, ws[i]), copies)
+        t_pb, _ = both_ms(torch, lambda i: ref.baseline_matmul_ref(
+            x, ws[i]), copies, iters=5)
+        lib = {"library": "torch._int_mm"}
+        try:
+            got_l = torch._int_mm(x, ws[0])
+            lib["library_max_abs_err"] = int(
+                (got_l.long() - want_b.long()).abs().max())
+            lib["library_ms"] = device_ms(
+                torch, lambda i: torch._int_mm(x, ws[i]), copies)
+        except (RuntimeError, TypeError) as e:
+            lib.update(library_ms=None, library_error=str(e).splitlines()[0])
+        bb_ms, bb_by = bound(m * k + k * n + m * n * 4, 2.0 * m * k * n,
+                             INT8_OPS_PER_S)
+        row = {"M": m, "K": k, "N": n, "baseline_matmul": {
+            "ms": t_kb, "eager_ms": e_kb, "plain_ms": t_pb,
+            "bound_ms": bb_ms, "bound_by": bb_by, "max_abs_err": err_b,
+            **lib}}
+        rows.append(row)
+        if (k, n) == (2048, 2048):
+            records["baseline_matmul"]["at_library_shape"] = dict(
+                row["baseline_matmul"], shape=f"M={m} K={k} N={n}")
+        del ws
     return rows, errors
 
 
@@ -284,8 +334,11 @@ def attention_checks(torch, records: dict, pages_per_slot: int) -> list:
         except (RuntimeError, TypeError) as e:
             t_lib = None
             errors_lib = str(e).splitlines()[0]
+        # the function reads only the K/V positions some row can see:
+        # up to the largest limit of each batch row (= its length)
         rows_valid = lim.clamp(min=0, max=S).sum().item() * Hq
-        byts = (q.numel() * 4 * 2 + 2 * B * S * Hkv * hd
+        positions = lim.max(dim=1).values.clamp(min=0, max=S).sum().item()
+        byts = (q.numel() * 4 * 2 + 2 * positions * Hkv * hd
                 + 2 * B * Hkv * 4 + B * 4)
         b_ms, b_by = bound(byts, 4.0 * rows_valid * hd, F32_OPS_PER_S)
         row = {"form": label, "B": B, "C": max(C, 1), "S": S, "Hq": Hq,
@@ -559,7 +612,7 @@ def main() -> int:
     detail = {"card": card, "torch": torch.__version__,
               "cuda": torch.version.cuda}
     records: dict = {}
-    launches = {k: 0 for k in _build.KERNELS}
+    launches: dict = {}     # path -> its own zeroed run's counts
     t_all = time.perf_counter()
     for phase in ["build"] + [p for p in phases if p != "build"]:
         t0 = time.perf_counter()
@@ -585,8 +638,7 @@ def main() -> int:
         elif phase == "w8a8":
             info, problems = phase_w8a8(torch, np, _build, CONFIG, cuda)
         if "launches" in info:
-            for k, v in info["launches"].items():
-                launches[k] += v
+            launches[phase] = info["launches"]
         dt = time.perf_counter() - t0
         detail[phase] = info
         short = {k: v for k, v in info.items()
@@ -605,16 +657,22 @@ def main() -> int:
         json.dump(detail, f, indent=1, default=str)
     if "kernels" in phases:
         kernels = []
-        for name, (source, replaces) in SOURCES.items():
+        for name, (source, replaces, path) in SOURCES.items():
             r = records.get(name, {})
             kernels.append({
                 "name": name, "route": "cuda", "source": source,
-                "replaces": replaces, "launches": launches[name],
+                "replaces": replaces,
+                "launches": launches.get(path, {}).get(name),
+                "path": path,
+                "launches_by_path": {p: c.get(name)
+                                     for p, c in launches.items()},
                 "max_abs_err": r.get("max_abs_err"), "ms": r.get("ms"),
                 "eager_ms": r.get("eager_ms"),
                 "plain_ms": r.get("plain_ms"), "bound_ms": r.get("bound_ms"),
                 "bound_by": r.get("bound_by"),
-                "library_ms": r.get("library_ms"), "shape": r.get("shape")})
+                "library_ms": r.get("library_ms"), "shape": r.get("shape"),
+                **({"at_library_shape": r["at_library_shape"]}
+                   if "at_library_shape" in r else {})})
         print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

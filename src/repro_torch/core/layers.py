@@ -152,6 +152,10 @@ def calibrate_dense(qp: QuantState, x: torch.Tensor,
         running = torch.cumsum(tiles, dim=0)
         _, qpmax = qrange(spec.psum.bits, True)
         mags = 2.0 * running.abs().mean(dim=(1, 2)) / math.sqrt(qpmax)
+        # ap stays a float log2, as in the reference, because fake quant
+        # uses it unrounded; export floors it (``quant/export.py``), the
+        # one PO2 exponent the port still takes from a float log2
+        # (ROADMAP queue 3)
         ap = torch.log2(torch.clamp(mags, min=1e-6))
     return dataclasses.replace(qp, ax=ax, ap=ap)
 

@@ -1,12 +1,10 @@
 """Execution backends for deployed integer ops (port of ``repro.exec``)."""
 from .backends import (AutoBackend, CudaBackend, ExecBackend, OracleBackend,
-                       available_backends, execute_gemm,
-                       execute_kv_attention, get_backend, kv_block_size,
-                       quantize_activations, register_backend)
+                       execute_gemm, execute_kv_attention, get_backend,
+                       kv_block_size, quantize_activations)
 
 __all__ = [
     "AutoBackend", "CudaBackend", "ExecBackend", "OracleBackend",
-    "available_backends", "execute_gemm", "execute_kv_attention",
-    "get_backend", "kv_block_size", "quantize_activations",
-    "register_backend",
+    "execute_gemm", "execute_kv_attention", "get_backend", "kv_block_size",
+    "quantize_activations",
 ]

@@ -1,7 +1,7 @@
 """Execution backends for deployed integer ops (port of
 ``repro/exec/backends.py``).
 
-Two op families behind one registry:
+Two op families behind three backends:
 
   * ``int_gemm``: INT8 activation codes [M, K] x a deployed layer's
     weight codes [K, N] with PSUM shift exponents ([n_p] or [n_p, N];
@@ -103,22 +103,10 @@ class AutoBackend(ExecBackend):
                                           length)
 
 
-_REGISTRY: dict = {}
-
-
-def register_backend(name: str, backend: ExecBackend) -> None:
-    _REGISTRY[name] = backend
-
-
-register_backend("oracle", OracleBackend())
-register_backend("cuda", CudaBackend())
-register_backend("auto", AutoBackend())
+_REGISTRY = {"oracle": OracleBackend(), "cuda": CudaBackend(),
+             "auto": AutoBackend()}
 
 DEFAULT_BACKEND = "auto"
-
-
-def available_backends() -> tuple:
-    return tuple(sorted(_REGISTRY))
 
 
 def get_backend(backend=None) -> ExecBackend:
@@ -131,7 +119,7 @@ def get_backend(backend=None) -> ExecBackend:
         return _REGISTRY[backend]
     except KeyError:
         raise KeyError(f"unknown exec backend {backend!r}; "
-                       f"known: {available_backends()}") from None
+                       f"known: {sorted(_REGISTRY)}") from None
 
 
 def quantize_activations(x2d: torch.Tensor, ax_exp: torch.Tensor,
@@ -165,7 +153,10 @@ def execute_gemm(dq: DeployedQuantState, x: torch.Tensor, *,
 
 
 def kv_block_size(seq_len: int, requested: int = 512) -> int:
-    """Largest divisor of ``seq_len`` that is <= ``requested``."""
+    """Largest divisor of ``seq_len`` that is <= ``requested``.
+
+    Kept for parity with ``repro.exec``: the port's attention kernel tiles
+    S itself, so nothing in the port calls it."""
     b = max(1, min(requested, seq_len))
     while seq_len % b:
         b -= 1

@@ -22,10 +22,17 @@
 // (never -inf, so an all-masked tile gives exp(0) = 1 that the first
 // real score washes out instead of NaN).
 
-// Bound on the H100: decode reads every cache byte once per step, so the
-// bound is bytes (2*B*S*Hkv*hd int8 at 3.35 TB/s).  With B*Hkv blocks a
-// decode step fills few of the 132 SMs; splitting S across blocks
-// (flash-decoding) is the next step, not this first kernel's.
+// The walk over S stops at the pass's last visible position: a masked
+// score adds exp(-1e30 - m) = 0 once its row has seen a real score, so
+// positions past every row's limit change nothing.  A row that sees no
+// position at all (limit <= 0) averages V over all S in the reference,
+// so a pass holding such a row walks the whole S.
+//
+// Bound on the H100: decode reads each visible cache byte once per step,
+// so the bound is bytes (2*Hkv*hd*sum_b min(len_b, S) int8 at
+// 3.35 TB/s).  With B*Hkv blocks a decode step fills few of the 132 SMs;
+// splitting S across blocks (flash-decoding) is the next step, not this
+// first kernel's.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -69,8 +76,12 @@ kv_attn_kernel(const float* __restrict__ q, const int8_t* __restrict__ kc,
       m_s[r] = NEG_INF;
       l_s[r] = 0.0f;
     }
-    for (int s0 = 0; s0 < S; s0 += TS) {
-      const int nj = min(TS, S - s0);
+    // row r sees positions < len - C + 1 + (r0 + r) / G
+    const int lim_lo = len[b] - C + 1 + r0 / G;
+    const int lim_hi = len[b] - C + 1 + (r0 + nr - 1) / G;
+    const int s_end = lim_lo >= 1 ? min(S, lim_hi) : S;
+    for (int s0 = 0; s0 < s_end; s0 += TS) {
+      const int nj = min(TS, s_end - s0);
       __syncthreads();
       for (int idx = tid; idx < nj * HD / 4; idx += THREADS) {
         const int j = idx / (HD / 4), d = (idx % (HD / 4)) * 4;
@@ -152,7 +163,6 @@ extern "C" int int8_kv_attention_launch(const void* q, const void* kc,
   switch (hd) {
     case 8: return launch<8>(q, kc, vc, ke, ve, len, out, B, C, Hq, S, Hkv, scale, st);
     case 16: return launch<16>(q, kc, vc, ke, ve, len, out, B, C, Hq, S, Hkv, scale, st);
-    case 32: return launch<32>(q, kc, vc, ke, ve, len, out, B, C, Hq, S, Hkv, scale, st);
     case 64: return launch<64>(q, kc, vc, ke, ve, len, out, B, C, Hq, S, Hkv, scale, st);
     default: return -1;
   }

@@ -10,8 +10,11 @@ DeployedQuantState}`` (the float weight is dropped):
     product-scale units, clamped to >= 0 (the shifter cannot
     left-shift-quantize).
 
-``floor(log2 .)`` is the exact ``core.po2.floor_log2``, not a float
-``log2``.
+``floor(log2 .)`` of ``aw`` and ``ax`` is the exact
+``core.po2.floor_log2``, not a float ``log2``.  ``ap`` is already a float
+log2 (``core.layers.calibrate_dense``), so ``floor(ap)`` can differ from
+the exact exponent where the PSUM magnitude lies at or next to a power of
+two (ROADMAP queue 3).
 """
 from __future__ import annotations
 

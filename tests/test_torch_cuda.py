@@ -71,6 +71,7 @@ def test_apsq_and_baseline_kernels_bit_exact(cuda, m, k, n, n_p, gs, exps):
     (2, 4, 32, 4, 2, 16, [9, 32]), (1, 8, 64, 8, 4, 16, [30]),
     (8, 0, 96, 32, 4, 64, [5, 17, 33, 50, 64, 80, 95, 96]),
     (1, 16, 96, 32, 4, 64, [40]),
+    (2, 8, 64, 8, 2, 16, [3, 40]),   # rows of batch 0 that see nothing
 ])
 def test_kv_attention_kernel_matches_plain(cuda, B, C, S, Hq, Hkv, hd,
                                            lengths):
