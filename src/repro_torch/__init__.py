@@ -6,8 +6,9 @@ and function names (``core``, ``kernels``, ``exec``, ``models``,
 reference of the same name.  It imports ``torch`` and numpy only.
 
 The integer hot path — the APSQ GEMM (generic grid, m=1 decode form,
-INT32-accumulator W8A8 baseline) and flash-decode attention over the
-paged INT8 KV cache — runs on CUDA C++ kernels under
+fused MoE expert bank), the INT32-accumulator W8A8 GEMMs (plain and
+expert bank) and flash-decode attention over the paged INT8 KV cache —
+runs on CUDA C++ kernels under
 ``repro_torch/kernels/*/csrc``, built with ``nvcc`` at first use and
 bound through ``ctypes``.  Each kernel keeps a plain PyTorch version in
 the same module, which its wrapper uses only for tensors on the CPU.
@@ -15,7 +16,7 @@ the same module, which its wrapper uses only for tensors on the CPU.
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``
 (``repro_torch.device.resolve_device``).
 
-This first slice covers the dense decoder's production path:
+The port covers the production path of dense and MoE decoders:
 ``init_lm`` -> ``calibrate_model`` -> ``export_quantized`` ->
 ``PagedServingEngine.from_exported`` -> ``run``.
 """

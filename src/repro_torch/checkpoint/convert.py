@@ -11,7 +11,8 @@ deployed state, ``aw``/``ax``/``ap`` for a quantizer state; ``spec``,
 ``name``, ``out_dims`` ride along), and a ``spec`` is rebuilt from its
 fields.  Scan-stacked units (``params["units"]`` keyed by pattern
 position with a leading unit axis) are unstacked into the port's
-``{"u0": ..., "u1": ...}`` layout.
+``{"u0": ..., "u1": ...}`` layout; a MoE layer's stacked expert states
+(``[U, E, ...]`` leaves) come out as one ``[E, ...]`` state per unit.
 """
 from __future__ import annotations
 

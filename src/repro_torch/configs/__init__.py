@@ -3,7 +3,8 @@ from __future__ import annotations
 
 import importlib
 
-_MODULES = {"tinyllama-1.1b": "tinyllama_1_1b"}
+_MODULES = {"tinyllama-1.1b": "tinyllama_1_1b",
+            "olmoe-1b-7b": "olmoe_1b_7b"}
 
 ARCH_NAMES = tuple(_MODULES)
 

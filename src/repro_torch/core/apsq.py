@@ -29,7 +29,8 @@ def apsq_matmul(x: torch.Tensor, w: torch.Tensor, log2_alphas: torch.Tensor,
     """``x @ w`` with APSQ-quantized PSUM accumulation (fake quant, f32).
 
     x: [..., K] (fake-quantized activations), w: [K, N] (fake-quantized
-    weights), log2_alphas: [n_p].  K must be divisible by n_p.
+    weights; or a MoE bank [E, K, N] against x [E, C, K]), log2_alphas:
+    [n_p].  K must be divisible by n_p.
     """
     K = x.shape[-1]
     if K % n_p:
@@ -44,7 +45,7 @@ def apsq_matmul(x: torch.Tensor, w: torch.Tensor, log2_alphas: torch.Tensor,
     last_start = (n_groups - 1) * gs
 
     def tile(i):
-        return x[..., i * kt:(i + 1) * kt] @ w[i * kt:(i + 1) * kt]
+        return x[..., i * kt:(i + 1) * kt] @ w[..., i * kt:(i + 1) * kt, :]
 
     carry = torch.zeros(x.shape[:-1] + (w.shape[-1],), dtype=torch.float32,
                         device=x.device)

@@ -167,7 +167,9 @@ def quant_dense(x: torch.Tensor, w: torch.Tensor | None, qp, *,
     ``DeployedQuantState``: the integer path (``w`` ignored).
     ``QuantState``: W8A8 fake quant, plus PSQ/APSQ on the PSUMs; appends
     a ``TapRecord`` to ``tap`` when given.  None: plain float GEMM.
-    x: [..., K]; w: [K, N].  Returns [..., N] in x.dtype.
+    x: [..., K]; w: [K, N], or a MoE bank [E, K, N] against x [E, C, K]
+    with one state shared by every expert (``models.moe``, which taps
+    its experts itself).  Returns [..., N] in x.dtype.
     """
     if isinstance(qp, DeployedQuantState):
         return deployed_dense(x, qp, backend=backend)

@@ -1,10 +1,11 @@
 """Execution backends for deployed integer ops (port of ``repro.exec``)."""
 from .backends import (AutoBackend, CudaBackend, ExecBackend, OracleBackend,
-                       execute_gemm, execute_kv_attention, get_backend,
-                       kv_block_size, quantize_activations)
+                       execute_expert_gemm, execute_gemm,
+                       execute_kv_attention, get_backend, kv_block_size,
+                       quantize_activations)
 
 __all__ = [
     "AutoBackend", "CudaBackend", "ExecBackend", "OracleBackend",
-    "execute_gemm", "execute_kv_attention", "get_backend", "kv_block_size",
-    "quantize_activations",
+    "execute_expert_gemm", "execute_gemm", "execute_kv_attention",
+    "get_backend", "kv_block_size", "quantize_activations",
 ]

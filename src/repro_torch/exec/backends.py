@@ -5,7 +5,9 @@ Two op families behind three backends:
 
   * ``int_gemm``: INT8 activation codes [M, K] x a deployed layer's
     weight codes [K, N] with PSUM shift exponents ([n_p] or [n_p, N];
-    None for plain W8A8) -> INT32 in product-scale units;
+    None for plain W8A8) -> INT32 in product-scale units, and its
+    stacked MoE form ``int_expert_gemm``: [E, M, K] x [E, K, N] with
+    exponent banks [E, n_p] or [E, n_p, N] -> [E, M, N] in one op;
   * ``kv_attention``: a float query against an INT8 KV cache with PO2
     exponents per (batch, kv-head), decode (3-D q) or prefill chunk (4-D).
 
@@ -20,7 +22,9 @@ Backends:
     fails to build or launch raises.
 
 ``execute_gemm`` routes ``psum_exps is None`` to the baseline W8A8 kernel
-and M == 1 to the m=1 decode kernel, as the JAX ops do.
+and M == 1 to the m=1 decode kernel, as the JAX ops do;
+``execute_expert_gemm`` routes an expert bank to the fused expert
+kernels (APSQ or W8A8) in one launch for all experts.
 """
 from __future__ import annotations
 
@@ -33,6 +37,9 @@ class ExecBackend:
     name = "base"
 
     def int_gemm(self, x_codes, w_codes, psum_exps, *, gs: int):
+        raise NotImplementedError
+
+    def int_expert_gemm(self, x_codes, w_codes, psum_exps, *, gs: int):
         raise NotImplementedError
 
     def kv_attention(self, q, k_codes, v_codes, k_exp, v_exp, length):
@@ -53,6 +60,15 @@ class OracleBackend(ExecBackend):
             return ref.baseline_matmul_ref(x_codes, w_codes)
         return ref.apsq_matmul_ref(x_codes, w_codes, psum_exps,
                                    n_p=int(psum_exps.shape[0]), gs=gs)
+
+    def int_expert_gemm(self, x_codes, w_codes, psum_exps, *, gs):
+        """Vectorised over E (one batched product per PSUM tile),
+        bit-identical to the JAX oracle's E unrolled ``int_gemm`` calls."""
+        from repro_torch.kernels.apsq_matmul import ref
+        if psum_exps is None:
+            return ref.baseline_expert_matmul_ref(x_codes, w_codes)
+        return ref.apsq_expert_matmul_ref(x_codes, w_codes, psum_exps,
+                                          gs=gs)
 
     def kv_attention(self, q, k_codes, v_codes, k_exp, v_exp, length):
         from repro_torch.kernels.int8_kv_attention import int8_kv_attention_ref
@@ -79,6 +95,14 @@ class CudaBackend(ExecBackend):
             return baseline_matmul_int8(x_codes, w_codes)
         return apsq_matmul_int8(x_codes, w_codes, psum_exps, gs=gs)
 
+    def int_expert_gemm(self, x_codes, w_codes, psum_exps, *, gs):
+        from repro_torch.kernels.apsq_matmul import (
+            apsq_expert_matmul_int8, baseline_expert_matmul_int8)
+        self._require_cuda(x_codes)
+        if psum_exps is None:
+            return baseline_expert_matmul_int8(x_codes, w_codes)
+        return apsq_expert_matmul_int8(x_codes, w_codes, psum_exps, gs=gs)
+
     def kv_attention(self, q, k_codes, v_codes, k_exp, v_exp, length):
         from repro_torch.kernels.int8_kv_attention import int8_kv_attention
         self._require_cuda(q)
@@ -97,6 +121,10 @@ class AutoBackend(ExecBackend):
     def int_gemm(self, x_codes, w_codes, psum_exps, *, gs):
         return self._pick(x_codes).int_gemm(x_codes, w_codes, psum_exps,
                                             gs=gs)
+
+    def int_expert_gemm(self, x_codes, w_codes, psum_exps, *, gs):
+        return self._pick(x_codes).int_expert_gemm(x_codes, w_codes,
+                                                   psum_exps, gs=gs)
 
     def kv_attention(self, q, k_codes, v_codes, k_exp, v_exp, length):
         return self._pick(q).kv_attention(q, k_codes, v_codes, k_exp, v_exp,
@@ -124,7 +152,8 @@ def get_backend(backend=None) -> ExecBackend:
 
 def quantize_activations(x2d: torch.Tensor, ax_exp: torch.Tensor,
                          a_bits: int = 8) -> torch.Tensor:
-    """Float activations [M, K] -> INT8 codes at the PO2 scale 2^ax_exp."""
+    """Float activations [M, K] -> INT8 codes at the PO2 scale 2^ax_exp
+    (``ax_exp`` broadcasts: [E, 1, 1] quantizes [E, M, K] per expert)."""
     qn, qp = qrange(a_bits, True)
     inv = pow2(-torch.as_tensor(ax_exp).to(torch.int32)).to(x2d.device)
     return torch.clamp(torch.round(x2d.float() * inv), qn, qp).to(torch.int8)
@@ -149,6 +178,35 @@ def execute_gemm(dq: DeployedQuantState, x: torch.Tensor, *,
         gs = n_p if spec.psum.mode == "psq" else spec.psum.gs
     y = backend.int_gemm(xc, dq.w_codes, dq.psum_exps, gs=gs)
     scale = pow2(dq.ax_exp + dq.aw_exp).to(y.device)
+    return (y.float() * scale).to(x.dtype).reshape(out_shape)
+
+
+def execute_expert_gemm(dq: DeployedQuantState, x: torch.Tensor, *,
+                        backend=None) -> torch.Tensor:
+    """Run a deployed MoE expert bank: x [E, C, K] against per-expert
+    codes, all E experts as ONE backend op.
+
+    ``dq`` carries a leading expert axis on every data leaf (w_codes
+    [E, K, N], ax_exp [E], aw_exp [E, N] or [E], psum_exps [E, n_p, N]
+    or [E, n_p]).  Activations quantize per expert, ``int_expert_gemm``
+    runs the stacked integer GEMM and the INT32 outputs rescale per
+    expert by ``2^(ax_exp[e] + aw_exp[e])``.  Bit-identical to
+    ``execute_gemm`` on each expert's slice of ``dq``.
+    """
+    backend = get_backend(backend)
+    spec = dq.spec or QuantConfig.w8a8()
+    n_exp = int(dq.w_codes.shape[0])
+    k = dq.w_codes.shape[-2]
+    out_shape = tuple(x.shape[:-1]) + tuple(dq.out_dims)
+    ax = dq.ax_exp.reshape(n_exp, 1, 1)
+    xc = quantize_activations(x.reshape(n_exp, -1, k), ax, spec.a_bits)
+    gs = 1
+    if dq.psum_exps is not None:
+        n_p = int(dq.psum_exps.shape[1])
+        gs = n_p if spec.psum.mode == "psq" else spec.psum.gs
+    y = backend.int_expert_gemm(xc, dq.w_codes, dq.psum_exps, gs=gs)
+    aw = dq.aw_exp.reshape(n_exp, 1, -1)
+    scale = pow2(ax + aw).to(y.device)
     return (y.float() * scale).to(x.dtype).reshape(out_shape)
 
 

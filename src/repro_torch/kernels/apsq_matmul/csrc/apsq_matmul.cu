@@ -8,6 +8,11 @@
 //       -> apsq_matmul_m1_launch  (M == 1 decode)
 //   * baseline_matmul_kernel (:509, body _baseline_kernel :167)
 //       -> baseline_matmul_launch (INT32-accumulator W8A8)
+//   * apsq_expert_matmul_kernel (:419, body _apsq_expert_kernel :339)
+//       -> apsq_expert_matmul_launch (fused MoE expert bank)
+//   * baseline_expert_matmul_kernel (:472, body _baseline_expert_kernel
+//                                    :395)
+//       -> baseline_expert_matmul_launch (INT32-accumulator expert bank)
 //
 // Semantics: bit-exact with the integer oracle (ref.py).  [M, K] int8 x
 // [K, N] int8 -> [M, N] int32 in product-scale units, K = n_p * bk (the
@@ -26,11 +31,21 @@
 // current group stay in its registers, packed 8 to a 64-bit word
 // (gs <= 16), exactly the recurrence of _algorithm1_unrolled.  Activation
 // rows are staged through shared memory in KC-byte chunks.
+//
+// Expert banks.  The Pallas expert kernels put the expert on a grid axis
+// of one pallas_call; here it is blockIdx.z, and each block offsets x,
+// w, out and the exponent bank ([E, n_p] or [E, n_p, N]) by its expert,
+// so one launch serves all E experts with the same Algorithm-1 body.
+// M is the expert capacity (1-3 rows at OLMoE serving shapes): the
+// launch picks BM in {1, 2, 4, 8} from M and masks the rows past M,
+// where the JAX wrapper pads M to 8.
 
 // Bound on the H100: at decode (M <= 16) every weight byte is read once
 // and reused M times, so the bound is bytes (K*N weight bytes at
 // 3.35 TB/s); at prefill M it becomes int8 operations (2*M*K*N at the
-// int8 tensor-core peak).  These first kernels use scalar int32
+// int8 tensor-core peak).  An expert bank reads all E*K*N weight bytes
+// whatever the routing (E*K*N at 3.35 TB/s: 40 us for one OLMoE expert
+// GEMM, 64 x 2048 x 1024).  These first kernels use scalar int32
 // multiply-adds, not tensor cores: correct first, fast in a later change.
 
 #include <cstdint>
@@ -91,8 +106,10 @@ __device__ __forceinline__ int32_t exp_at(const int32_t* exps, int i, int n,
 // the per-warp INT32 partial products are summed (mod 2^32, so the order
 // does not matter) in shared memory before warp 0 applies the Algorithm-1
 // step for that tile.  APSQ = false is the INT32-accumulator baseline:
-// one tile over all of K, no requantization.
-template <int BM, bool APSQ>
+// one tile over all of K, no requantization.  EXPERT: blockIdx.z is the
+// expert, operands are [E, M, K], [E, K, N] -> [E, M, N] (a separate
+// instance, so the plain GEMMs' code is untouched by the offsets).
+template <int BM, bool APSQ, bool EXPERT = false>
 __global__ void __launch_bounds__(THREADS)
 gemm_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
             const int32_t* __restrict__ exps, int32_t* __restrict__ out,
@@ -103,6 +120,13 @@ gemm_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
   const int n = blockIdx.x * COLS + lane;
   const int row0 = blockIdx.y * BM;
   const int K = n_p * bk;
+  if (EXPERT) {
+    const size_t e = blockIdx.z;
+    x += e * M * K;
+    w += e * K * N;
+    out += e * M * N;
+    if (APSQ) exps += e * n_p * (exp_cols ? N : 1);
+  }
   const int last = n_p - 1;
   Banks bank[BM];
 #pragma unroll
@@ -180,14 +204,33 @@ gemm_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
   }
 }
 
-template <int BM, bool APSQ>
+template <int BM, bool APSQ, bool EXPERT = false>
 int launch(const void* x, const void* w, const void* exps, void* out, int M,
-           int N, int n_p, int bk, int gs, int exp_cols, void* stream) {
-  dim3 grid((N + COLS - 1) / COLS, (M + BM - 1) / BM);
-  gemm_kernel<BM, APSQ><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+           int N, int n_p, int bk, int gs, int exp_cols, void* stream,
+           int E = 1) {
+  dim3 grid((N + COLS - 1) / COLS, (M + BM - 1) / BM, E);
+  gemm_kernel<BM, APSQ, EXPERT><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
       (const int8_t*)x, (const int8_t*)w, (const int32_t*)exps,
       (int32_t*)out, M, N, n_p, bk, gs, exp_cols);
   return (int)cudaGetLastError();
+}
+
+// Expert banks: the fewest rows per block that cover M (up to GEN_BM).
+template <bool APSQ>
+int launch_experts(const void* x, const void* w, const void* exps, void* out,
+                   int E, int M, int N, int n_p, int bk, int gs,
+                   int exp_cols, void* stream) {
+  if (M <= 1)
+    return launch<1, APSQ, true>(x, w, exps, out, M, N, n_p, bk, gs,
+                                 exp_cols, stream, E);
+  if (M <= 2)
+    return launch<2, APSQ, true>(x, w, exps, out, M, N, n_p, bk, gs,
+                                 exp_cols, stream, E);
+  if (M <= 4)
+    return launch<4, APSQ, true>(x, w, exps, out, M, N, n_p, bk, gs,
+                                 exp_cols, stream, E);
+  return launch<GEN_BM, APSQ, true>(x, w, exps, out, M, N, n_p, bk, gs,
+                                    exp_cols, stream, E);
 }
 
 }  // namespace
@@ -211,4 +254,19 @@ extern "C" int apsq_matmul_m1_launch(const void* x, const void* w,
 extern "C" int baseline_matmul_launch(const void* x, const void* w, void* out,
                                       int M, int N, int K, void* stream) {
   return launch<GEN_BM, false>(x, w, nullptr, out, M, N, 1, K, 1, 0, stream);
+}
+
+extern "C" int apsq_expert_matmul_launch(const void* x, const void* w,
+                                         const void* exps, void* out, int E,
+                                         int M, int N, int n_p, int bk,
+                                         int gs, int exp_cols, void* stream) {
+  return launch_experts<true>(x, w, exps, out, E, M, N, n_p, bk, gs,
+                              exp_cols, stream);
+}
+
+extern "C" int baseline_expert_matmul_launch(const void* x, const void* w,
+                                             void* out, int E, int M, int N,
+                                             int K, void* stream) {
+  return launch_experts<false>(x, w, nullptr, out, E, M, N, 1, K, 1, 0,
+                               stream);
 }

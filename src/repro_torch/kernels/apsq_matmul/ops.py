@@ -18,14 +18,19 @@ from . import ref
 MAX_BANKS = 16
 
 
-def _check_operands(x_codes, w_codes):
+def _check_operands(x_codes, w_codes, *, experts: bool = False):
+    """int8 [M, K] @ [K, N], or [E, M, K] @ [E, K, N] for an expert bank,
+    on one device."""
     if x_codes.dtype != torch.int8 or w_codes.dtype != torch.int8:
         raise TypeError("APSQ GEMM takes int8 codes, got "
                         f"{x_codes.dtype} and {w_codes.dtype}")
-    if x_codes.dim() != 2 or w_codes.dim() != 2 \
-            or x_codes.shape[1] != w_codes.shape[0]:
+    nd = 3 if experts else 2
+    if (x_codes.dim() != nd or w_codes.dim() != nd
+            or x_codes.shape[:-2] != w_codes.shape[:-2]
+            or x_codes.shape[-1] != w_codes.shape[-2]):
+        form = "[E,M,K] @ [E,K,N]" if experts else "[M,K] @ [K,N]"
         raise ValueError(f"shapes {tuple(x_codes.shape)} @ "
-                         f"{tuple(w_codes.shape)} do not form [M,K] @ [K,N]")
+                         f"{tuple(w_codes.shape)} do not form {form}")
     if x_codes.device != w_codes.device:
         raise ValueError("operands on different devices")
 
@@ -68,6 +73,64 @@ def apsq_matmul_int8(x_codes: torch.Tensor, w_codes: torch.Tensor,
             x.data_ptr(), w.data_ptr(), e.data_ptr(), out.data_ptr(),
             m, n, n_p, bk, gs_eff, int(e.dim() == 2), stream)
         _build.check(err, "apsq_matmul")
+    return out
+
+
+def apsq_expert_matmul_int8(x_codes: torch.Tensor, w_codes: torch.Tensor,
+                            exps: torch.Tensor, *,
+                            gs: int) -> torch.Tensor:
+    """Stacked expert bank [E, M, K] @ [E, K, N] with Algorithm-1 PSUM
+    handling -> INT32 [E, M, N], all experts in one launch.
+
+    ``exps`` is [E, n_p] or [E, n_p, N]; bit-identical to
+    ``ref.apsq_expert_matmul_ref`` (E calls of the 2-D oracle)."""
+    _check_operands(x_codes, w_codes, experts=True)
+    e_, m, _ = x_codes.shape
+    n = w_codes.shape[2]
+    if exps.dim() not in (2, 3) or exps.shape[0] != e_ or (
+            exps.dim() == 3 and exps.shape[2] != n):
+        raise ValueError(f"exps {tuple(exps.shape)} is not [E, n_p] or "
+                         f"[E, n_p, N] for E={e_}, N={n}")
+    if x_codes.device.type == "cpu":
+        return ref.apsq_expert_matmul_ref(x_codes, w_codes, exps, gs=gs)
+    n_p = int(exps.shape[1])
+    gs_eff = min(int(gs), n_p)
+    if gs_eff < 1 or gs_eff > MAX_BANKS:
+        raise ValueError(f"gs={gs} (n_p={n_p}): the CUDA kernel keeps at "
+                         f"most {MAX_BANKS} bank codes")
+    x_codes, w_codes = ref.pad_ragged_k(x_codes, w_codes, n_p)
+    x = x_codes.contiguous()
+    w = w_codes.contiguous()
+    e = exps.to(device=x.device, dtype=torch.int32).contiguous()
+    out = torch.empty((e_, m, n), dtype=torch.int32, device=x.device)
+    if e_ == 0 or m == 0 or n == 0:
+        return out
+    err = _build.entry("apsq_expert_matmul")(
+        x.data_ptr(), w.data_ptr(), e.data_ptr(), out.data_ptr(), e_, m, n,
+        n_p, x.shape[2] // n_p, gs_eff, int(e.dim() == 3),
+        _build.stream_ptr(x.device))
+    _build.check(err, "apsq_expert_matmul")
+    return out
+
+
+def baseline_expert_matmul_int8(x_codes: torch.Tensor,
+                                w_codes: torch.Tensor) -> torch.Tensor:
+    """INT32-accumulator expert bank [E, M, K] @ [E, K, N] -> [E, M, N]
+    in one launch (W8A8 expert layers)."""
+    _check_operands(x_codes, w_codes, experts=True)
+    if x_codes.device.type == "cpu":
+        return ref.baseline_expert_matmul_ref(x_codes, w_codes)
+    x = x_codes.contiguous()
+    w = w_codes.contiguous()
+    e_, m, k = x.shape
+    n = w.shape[2]
+    out = torch.empty((e_, m, n), dtype=torch.int32, device=x.device)
+    if e_ == 0 or m == 0 or n == 0:
+        return out
+    err = _build.entry("baseline_expert_matmul")(
+        x.data_ptr(), w.data_ptr(), out.data_ptr(), e_, m, n, k,
+        _build.stream_ptr(x.device))
+    _build.check(err, "baseline_expert_matmul")
     return out
 
 

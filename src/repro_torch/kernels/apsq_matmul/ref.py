@@ -69,8 +69,9 @@ def dequantize_psum(code: torch.Tensor, e) -> torch.Tensor:
 
 
 def pad_ragged_k(x_codes: torch.Tensor, w_codes: torch.Tensor, n_p: int):
-    """Zero-pad K up to ``n_p * ceil(K / n_p)`` (remainder PSUM group)."""
-    k = x_codes.shape[1]
+    """Zero-pad K up to ``n_p * ceil(K / n_p)`` (remainder PSUM group);
+    ``[..., M, K]`` / ``[..., K, N]``, leading (expert) dims kept."""
+    k = x_codes.shape[-1]
     pad = (-k) % n_p
     if pad:
         x_codes = torch.nn.functional.pad(x_codes, (0, pad))
@@ -91,14 +92,42 @@ def int_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def psum_tiles(x_codes: torch.Tensor, w_codes: torch.Tensor,
                n_p: int) -> torch.Tensor:
-    """[n_p, M, N] INT32 partial-sum tiles of ``x @ w`` split along K."""
+    """[n_p, ..., M, N] INT32 partial-sum tiles of ``x @ w`` split along
+    K, for ``[..., M, K] @ [..., K, N]`` (one batched product per tile)."""
     x_codes, w_codes = pad_ragged_k(x_codes, w_codes, n_p)
-    m, k = x_codes.shape
-    n = w_codes.shape[1]
+    *lead, m, k = x_codes.shape
+    n = w_codes.shape[-1]
     kt = k // n_p
-    xt = x_codes.reshape(m, n_p, kt).transpose(0, 1)       # [n_p, M, kt]
-    wt = w_codes.reshape(n_p, kt, n)
+    xt = x_codes.reshape(*lead, m, n_p, kt).movedim(-2, 0)  # [n_p,..,M,kt]
+    wt = w_codes.reshape(*lead, n_p, kt, n).movedim(-3, 0)  # [n_p,..,kt,N]
     return int_matmul(xt, wt)
+
+
+def _algorithm1(tiles: torch.Tensor, exp_at, n_p: int,
+                gs: int) -> torch.Tensor:
+    """Algorithm 1 over PSUM ``tiles`` [n_p, ...]; ``exp_at(i)`` is tile
+    i's exponent, broadcastable against a tile.  Every op is elementwise,
+    so a leading expert axis gives E independent recurrences."""
+    assert gs >= 1
+    stored: list = [None] * n_p
+    for i in range(0, n_p, gs):  # group starts
+        acc = tiles[i]
+        for j in range(max(0, i - gs), i):  # previous group's stored codes
+            acc = acc + dequantize_psum(stored[j], exp_at(j))
+        code = quantize_psum(acc, exp_at(i))  # APSQ
+        stored[i] = code
+        if i == n_p - 1:
+            return dequantize_psum(code, exp_at(i))
+        for j in range(i + 1, min(i + gs, n_p)):
+            if j < n_p - 1:
+                stored[j] = quantize_psum(tiles[j], exp_at(j))  # PSQ tail
+            else:  # final tile closes out mid-group
+                acc = tiles[j]
+                for l in range(i, n_p - 1):
+                    acc = acc + dequantize_psum(stored[l], exp_at(l))
+                code = quantize_psum(acc, exp_at(j))
+                return dequantize_psum(code, exp_at(j))
+    raise AssertionError("unreachable")
 
 
 def apsq_matmul_ref(x_codes: torch.Tensor, w_codes: torch.Tensor,
@@ -108,33 +137,37 @@ def apsq_matmul_ref(x_codes: torch.Tensor, w_codes: torch.Tensor,
     ``exps``: [n_p] or [n_p, N] int32 shift exponents (product-scale
     units).  Returns ``AP*_{n_p-1} << e_{n_p-1}``.
     """
-    assert gs >= 1
-    tiles = psum_tiles(x_codes, w_codes, n_p)
     exps = exps.to(torch.int32)
-    stored: list = [None] * n_p
-    for i in range(0, n_p, gs):  # group starts
-        acc = tiles[i]
-        for j in range(max(0, i - gs), i):  # previous group's stored codes
-            acc = acc + dequantize_psum(stored[j], exps[j])
-        code = quantize_psum(acc, exps[i])  # APSQ
-        stored[i] = code
-        if i == n_p - 1:
-            return dequantize_psum(code, exps[i])
-        for j in range(i + 1, min(i + gs, n_p)):
-            if j < n_p - 1:
-                stored[j] = quantize_psum(tiles[j], exps[j])  # PSQ tail
-            else:  # final tile closes out mid-group
-                acc = tiles[j]
-                for l in range(i, n_p - 1):
-                    acc = acc + dequantize_psum(stored[l], exps[l])
-                code = quantize_psum(acc, exps[j])
-                return dequantize_psum(code, exps[j])
-    raise AssertionError("unreachable")
+    return _algorithm1(psum_tiles(x_codes, w_codes, n_p),
+                       lambda i: exps[i], n_p, gs)
+
+
+def apsq_expert_matmul_ref(x_codes: torch.Tensor, w_codes: torch.Tensor,
+                           exps: torch.Tensor, *, gs: int) -> torch.Tensor:
+    """Stacked expert bank: [E, M, K] @ [E, K, N] -> INT32 [E, M, N].
+
+    ``exps``: [E, n_p] or [E, n_p, N].  Bit-identical to E calls of
+    ``apsq_matmul_ref`` (the JAX oracle's unrolled form), computed with
+    one batched product per PSUM tile instead of a loop over experts.
+    """
+    n_p = int(exps.shape[1])
+    exps = exps.to(torch.int32)
+    if exps.dim() == 2:
+        exp_at = lambda i: exps[:, i, None, None]           # [E, 1, 1]
+    else:
+        exp_at = lambda i: exps[:, i, None, :]              # [E, 1, N]
+    return _algorithm1(psum_tiles(x_codes, w_codes, n_p), exp_at, n_p, gs)
 
 
 def baseline_matmul_ref(x_codes: torch.Tensor,
                         w_codes: torch.Tensor) -> torch.Tensor:
     """INT32-accumulator W8A8 GEMM (the high-precision-PSUM baseline)."""
+    return int_matmul(x_codes, w_codes)
+
+
+def baseline_expert_matmul_ref(x_codes: torch.Tensor,
+                               w_codes: torch.Tensor) -> torch.Tensor:
+    """INT32-accumulator expert GEMM: [E, M, K] @ [E, K, N] -> [E, M, N]."""
     return int_matmul(x_codes, w_codes)
 
 

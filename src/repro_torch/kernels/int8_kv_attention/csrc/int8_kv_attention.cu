@@ -21,6 +21,15 @@
 // the V scale 2^ve multiplies the P.V product, masked scores are -1e30
 // (never -inf, so an all-masked tile gives exp(0) = 1 that the first
 // real score washes out instead of NaN).
+//
+// Shared memory: the tiles take (2*RB*HD + TS*(2*HD+1) + RB*(TS+4))
+// floats, 37.5 KB at hd=64 and 70.3 KB at hd=128 (OLMoE), past the
+// 48 KB a block may declare statically.  An instance whose tiles fit
+// keeps them static (the dynamic form measured about 20% slower at
+// hd=64); the hd=128 instance takes them as dynamic shared memory,
+// after raising the kernel's limit
+// (cudaFuncAttributeMaxDynamicSharedMemorySize).  Three of its blocks
+// fit one SM's 227 KB.
 
 // The walk over S stops at the pass's last visible position: a masked
 // score adds exp(-1e30 - m) = 0 once its row has seen a real score, so
@@ -44,20 +53,41 @@ constexpr int RB = 32;                 // query rows per pass
 constexpr int THREADS = 128;
 constexpr float NEG_INF = -1e30f;
 
+// The block's tiles, one struct in shared memory.
 template <int HD>
-__global__ void __launch_bounds__(THREADS)
-kv_attn_kernel(const float* __restrict__ q, const int8_t* __restrict__ kc,
-               const int8_t* __restrict__ vc,
-               const int32_t* __restrict__ kexp,
-               const int32_t* __restrict__ vexp,
-               const int32_t* __restrict__ len, float* __restrict__ out,
-               int C, int Hq, int S, int Hkv, float scale) {
-  __shared__ float qs[RB][HD];
-  __shared__ float acc[RB][HD];
-  __shared__ float ks[TS][HD + 1];     // +1: lanes walk j, no bank conflict
-  __shared__ float vs[TS][HD];
-  __shared__ float sc[RB][TS + 1];
-  __shared__ float m_s[RB], l_s[RB], corr_s[RB];
+struct Tiles {
+  float qs[RB][HD];
+  float acc[RB][HD];
+  float ks[TS][HD + 1];                // +1: lanes walk j, no bank conflict
+  float vs[TS][HD];
+  float sc[RB][TS + 1];
+  float m_s[RB], l_s[RB], corr_s[RB];
+};
+
+constexpr size_t STATIC_SMEM = 48 * 1024;
+
+// Dynamic shared memory bytes of an instance's launch (0: static tiles).
+template <int HD>
+__host__ __device__ constexpr size_t dynamic_bytes() {
+  return sizeof(Tiles<HD>) > STATIC_SMEM ? sizeof(Tiles<HD>) : 0;
+}
+
+template <int HD>
+__device__ __forceinline__ void
+kv_attn_body(Tiles<HD>& t, const float* __restrict__ q,
+             const int8_t* __restrict__ kc, const int8_t* __restrict__ vc,
+             const int32_t* __restrict__ kexp,
+             const int32_t* __restrict__ vexp,
+             const int32_t* __restrict__ len, float* __restrict__ out, int C,
+             int Hq, int S, int Hkv, float scale) {
+  auto& qs = t.qs;
+  auto& acc = t.acc;
+  auto& ks = t.ks;
+  auto& vs = t.vs;
+  auto& sc = t.sc;
+  auto& m_s = t.m_s;
+  auto& l_s = t.l_s;
+  auto& corr_s = t.corr_s;
   const int h = blockIdx.x, b = blockIdx.y, tid = threadIdx.x;
   const int G = Hq / Hkv, CG = C * G;
   const float sk = scale * ldexpf(1.0f, kexp[b * Hkv + h]);
@@ -138,12 +168,49 @@ kv_attn_kernel(const float* __restrict__ q, const int8_t* __restrict__ kc,
   }
 }
 
+// The tiles are static where they fit, else dynamic shared memory; the
+// body is the same either way.
+template <int HD>
+__global__ void __launch_bounds__(THREADS)
+kv_attn_kernel(const float* __restrict__ q, const int8_t* __restrict__ kc,
+               const int8_t* __restrict__ vc,
+               const int32_t* __restrict__ kexp,
+               const int32_t* __restrict__ vexp,
+               const int32_t* __restrict__ len, float* __restrict__ out,
+               int C, int Hq, int S, int Hkv, float scale) {
+  if constexpr (dynamic_bytes<HD>() > 0) {
+    extern __shared__ float4 smem_raw[];
+    kv_attn_body<HD>(*reinterpret_cast<Tiles<HD>*>(smem_raw), q, kc, vc,
+                     kexp, vexp, len, out, C, Hq, S, Hkv, scale);
+  } else {
+    __shared__ Tiles<HD> tiles;
+    kv_attn_body<HD>(tiles, q, kc, vc, kexp, vexp, len, out, C, Hq, S, Hkv,
+                     scale);
+  }
+}
+
 template <int HD>
 int launch(const void* q, const void* kc, const void* vc, const void* ke,
            const void* ve, const void* len, void* out, int B, int C, int Hq,
            int S, int Hkv, float scale, cudaStream_t stream) {
+  constexpr size_t bytes = dynamic_bytes<HD>();
+  if (bytes > 0) {
+    // once per device: the attribute call costs tens of microseconds
+    constexpr int MAX_DEVICES = 64;
+    static bool raised[MAX_DEVICES] = {};
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return (int)err;
+    if (dev >= MAX_DEVICES || !raised[dev]) {
+      err = cudaFuncSetAttribute(kv_attn_kernel<HD>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 (int)bytes);
+      if (err != cudaSuccess) return (int)err;
+      if (dev < MAX_DEVICES) raised[dev] = true;
+    }
+  }
   dim3 grid(Hkv, B);
-  kv_attn_kernel<HD><<<grid, THREADS, 0, stream>>>(
+  kv_attn_kernel<HD><<<grid, THREADS, bytes, stream>>>(
       (const float*)q, (const int8_t*)kc, (const int8_t*)vc,
       (const int32_t*)ke, (const int32_t*)ve, (const int32_t*)len,
       (float*)out, C, Hq, S, Hkv, scale);
@@ -164,6 +231,7 @@ extern "C" int int8_kv_attention_launch(const void* q, const void* kc,
     case 8: return launch<8>(q, kc, vc, ke, ve, len, out, B, C, Hq, S, Hkv, scale, st);
     case 16: return launch<16>(q, kc, vc, ke, ve, len, out, B, C, Hq, S, Hkv, scale, st);
     case 64: return launch<64>(q, kc, vc, ke, ve, len, out, B, C, Hq, S, Hkv, scale, st);
+    case 128: return launch<128>(q, kc, vc, ke, ve, len, out, B, C, Hq, S, Hkv, scale, st);
     default: return -1;
   }
 }

@@ -13,7 +13,8 @@ import torch
 from .. import _build
 from . import ref
 
-HEAD_DIMS = (8, 16, 64)   # compiled instances: the tests, smoke, TinyLlama
+# compiled instances: the tests, smoke configs, TinyLlama, OLMoE
+HEAD_DIMS = (8, 16, 64, 128)
 
 
 def int8_kv_attention(q: torch.Tensor, k_codes: torch.Tensor,

@@ -1,7 +1,8 @@
-"""ModelConfig (port of ``repro/models/config.py``, dense fields).
+"""ModelConfig (port of ``repro/models/config.py``, the served fields).
 
-The JAX dataclass's field names, for the fields the dense decoder reads
-(``block_pattern=("attn",)``, rmsnorm, swiglu, untied head).  The JAX
+The JAX dataclass's field names, for the fields the served decoders read
+(``block_pattern=("attn",)``, rmsnorm, a SwiGLU or MoE channel mix,
+untied head).  The JAX
 package's ``scan_layers`` has no counterpart: the port always holds
 units as ``{"u0": ..., "u1": ...}`` and loops over them.
 """
@@ -35,6 +36,10 @@ class ModelConfig:
     block_pattern: tuple = ("attn",)
     rope_fraction: float = 1.0
     rope_theta: float = 10000.0
+    # MoE
+    n_experts: int = 0
+    top_k: int = 0
+    capacity_factor: float = 1.25
     tie_embeddings: bool = False
     dtype: str = "bfloat16"
     quant: QuantConfig = dataclasses.field(default_factory=QuantConfig)
@@ -75,14 +80,17 @@ class ModelConfig:
         assert self.n_heads % max(self.n_kv_heads, 1) == 0
         for k in self.block_pattern:
             assert k in BLOCK_KINDS, k
+        if self.mlp == "moe":
+            assert 1 <= self.top_k <= self.n_experts, (self.top_k,
+                                                       self.n_experts)
         return self
 
     def check_ported(self):
         """Raise for what this slice of the port does not serve yet."""
-        if (self.family != "dense" or self.block_pattern != ("attn",)
-                or self.mlp != "swiglu" or self.norm != "rmsnorm"
-                or self.tie_embeddings):
+        if (self.block_pattern != ("attn",)
+                or self.mlp not in ("swiglu", "moe")
+                or self.norm != "rmsnorm" or self.tie_embeddings):
             raise NotImplementedError(
-                f"{self.name}: the port serves dense attn/rmsnorm/swiglu "
-                "decoders with an untied head only so far")
+                f"{self.name}: the port serves attn/rmsnorm decoders with a "
+                "SwiGLU or MoE channel mix and an untied head only so far")
         return self

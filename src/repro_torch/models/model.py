@@ -1,4 +1,5 @@
-"""Decoder-only LM assembly (port of ``repro/models/model.py``, dense path).
+"""Decoder-only LM assembly (port of ``repro/models/model.py``: attention
+layers with a SwiGLU or MoE channel mix).
 
 Params are nested dicts: ``{"embed": {"table"}, "units": {"u0": {"0":
 layer}, ...}, "final_norm": {"scale"}, "head": {"w"}}``.  The JAX
@@ -22,6 +23,7 @@ from .attention import attention_block, init_attention
 from .common import (Params, apply_mlp, apply_norm, dense, embed,
                      init_embedding, init_linear, init_mlp, init_norm)
 from .config import ModelConfig
+from .moe import init_moe, moe_ffn
 
 
 # ---------------------------------------------------------------------------
@@ -33,15 +35,19 @@ def init_layer(gen, cfg: ModelConfig, kind: str, *, device,
     if kind != "attn":
         raise NotImplementedError(f"layer kind {kind!r} is not ported yet")
     dt, quant = cfg.torch_dtype, cfg.policy
-    return {
-        "ln1": init_norm(cfg.d_model, dt, device=device),
-        "ln2": init_norm(cfg.d_model, dt, device=device),
-        "mix": init_attention(gen, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
-                              cfg.hd, dt, device=device, quant=quant,
-                              name=f"{name}.mix"),
-        "ffn": init_mlp(gen, cfg.d_model, cfg.d_ff, dt, device=device,
-                        quant=quant, name=f"{name}.ffn"),
-    }
+    p = {"ln1": init_norm(cfg.d_model, dt, device=device),
+         "ln2": init_norm(cfg.d_model, dt, device=device),
+         "mix": init_attention(gen, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                               cfg.hd, dt, device=device, quant=quant,
+                               name=f"{name}.mix")}
+    if cfg.mlp == "moe":
+        p["ffn"] = init_moe(gen, cfg.d_model, cfg.d_ff, cfg.n_experts,
+                            cfg.top_k, dt, device=device, quant=quant,
+                            name=f"{name}.ffn")
+    else:
+        p["ffn"] = init_mlp(gen, cfg.d_model, cfg.d_ff, dt, device=device,
+                            quant=quant, name=f"{name}.ffn")
+    return p
 
 
 def init_lm(cfg: ModelConfig, *, seed: int = 0, device=None) -> Params:
@@ -72,7 +78,7 @@ def init_lm(cfg: ModelConfig, *, seed: int = 0, device=None) -> Params:
 def apply_layer(p: Params, x: torch.Tensor, *, cfg: ModelConfig,
                 state: Params | None = None, pos=0,
                 tap: list | None = None, backend=None, page_table=None):
-    """One pre-norm attention + SwiGLU block; returns (x, new_state)."""
+    """One pre-norm attention + SwiGLU/MoE block; returns (x, new_state)."""
     h = apply_norm(p["ln1"], x, cfg.norm)
     out, kv = attention_block(
         p["mix"], h, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
@@ -81,8 +87,13 @@ def apply_layer(p: Params, x: torch.Tensor, *, cfg: ModelConfig,
         backend=backend, page_table=page_table)
     x = x + out
     h2 = apply_norm(p["ln2"], x, cfg.norm)
-    x = x + apply_mlp(p["ffn"], h2, cfg.mlp, tap=tap, backend=backend)
-    return x, kv
+    if cfg.mlp == "moe":
+        y = moe_ffn(p["ffn"], h2, n_experts=cfg.n_experts, top_k=cfg.top_k,
+                    capacity_factor=cfg.capacity_factor, tap=tap,
+                    backend=backend)
+    else:
+        y = apply_mlp(p["ffn"], h2, cfg.mlp, tap=tap, backend=backend)
+    return x + y, kv
 
 
 def apply_unit(p: Params, x, *, cfg: ModelConfig, state=None, pos=0,

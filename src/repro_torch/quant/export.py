@@ -1,8 +1,12 @@
 """Integer deployment export (port of ``export_quantized`` in
-``repro/quant/export.py``, plain linears).
+``repro/quant/export.py``: plain linears and MoE expert banks).
 
 Every ``{"w": ..., "qp": QuantState}`` subtree becomes ``{"qp":
-DeployedQuantState}`` (the float weight is dropped):
+DeployedQuantState}`` (the float weight is dropped), and every MoE
+expert bank ``{"wi": [E, K, N], "qp_wi": QuantState}`` becomes
+``{"qp_wi": DeployedQuantState}`` with a leading expert axis on each
+data leaf: per-expert codes, and the exponents of the one shared state
+repeated per expert (as the JAX package's ``vmap`` over experts does).
 
   * weight codes at the per-channel scale ``2^floor(log2 aw)``;
   * activation exponent ``floor(log2 ax)``;
@@ -26,13 +30,9 @@ from repro_torch.core import (DeployedQuantState, QuantState, effective_n_p,
                               floor_log2, po2_quantize_codes)
 
 
-def _export_one(w: torch.Tensor, qp: QuantState):
-    """One [K, *out] weight + state -> (DeployedQuantState, n_clamped)."""
-    spec = qp.spec
-    k = w.shape[0]
-    w2d = w.reshape(k, -1).float()
+def _exponents(qp: QuantState):
+    """(ax_exp, aw_exp, psum_exps, n_clamped) of one quantizer state."""
     aw_exp = floor_log2(torch.clamp(qp.aw.float(), min=1e-30))
-    w_codes = po2_quantize_codes(w2d, aw_exp, bits=spec.w_bits)
     ax_exp = floor_log2(torch.clamp(qp.ax.float(), min=1e-30))
     psum_exps = None
     n_clamped = 0
@@ -44,9 +44,37 @@ def _export_one(w: torch.Tensor, qp: QuantState):
             psum_exps = ap_exp - ax_exp - aw_exp
         n_clamped = int((psum_exps < 0).sum())
         psum_exps = torch.clamp(psum_exps, min=0)
+    return ax_exp, aw_exp, psum_exps, n_clamped
+
+
+def _export_one(w: torch.Tensor, qp: QuantState):
+    """One [K, *out] weight + state -> (DeployedQuantState, n_clamped)."""
+    ax_exp, aw_exp, psum_exps, n_clamped = _exponents(qp)
+    w_codes = po2_quantize_codes(w.reshape(w.shape[0], -1).float(), aw_exp,
+                                 bits=qp.spec.w_bits)
     return DeployedQuantState(
         w_codes=w_codes, ax_exp=ax_exp, aw_exp=aw_exp, psum_exps=psum_exps,
-        spec=spec, name=qp.name, out_dims=tuple(w.shape[1:])), n_clamped
+        spec=qp.spec, name=qp.name, out_dims=tuple(w.shape[1:])), n_clamped
+
+
+def _export_experts(w: torch.Tensor, qp: QuantState):
+    """Expert bank [E, K, N] + its shared state -> (stacked
+    DeployedQuantState, n_clamped summed over experts): expert e's leaves
+    are exactly ``_export_one(w[e], qp)``'s."""
+    n_exp = w.shape[0]
+    ax_exp, aw_exp, psum_exps, n_clamped = _exponents(qp)
+    w_codes = po2_quantize_codes(w.reshape(n_exp, w.shape[1], -1).float(),
+                                 aw_exp, bits=qp.spec.w_bits)
+
+    def per_expert(t):
+        return t.expand(n_exp, *t.shape).contiguous()
+
+    return DeployedQuantState(
+        w_codes=w_codes, ax_exp=per_expert(ax_exp),
+        aw_exp=per_expert(aw_exp),
+        psum_exps=None if psum_exps is None else per_expert(psum_exps),
+        spec=qp.spec, name=qp.name,
+        out_dims=tuple(w.shape[2:])), n_clamped * n_exp
 
 
 @torch.no_grad()
@@ -55,7 +83,8 @@ def export_quantized(params, policy=None):
 
     ``policy`` optionally overrides each layer's spec (same n_p).
     Returns ``(deploy_params, report)``; report maps layer name to
-    {k, n, n_p, gs, mode, int8_bytes, clamped_exps, count}.
+    {k, n, n_p, gs, mode, int8_bytes, clamped_exps, count}, plus
+    ``n_experts`` for an expert bank.
     """
     report: dict = {}
 
@@ -81,25 +110,40 @@ def export_quantized(params, policy=None):
                 override, psum=dataclasses.replace(override.psum, n_p=eff))
         return dataclasses.replace(qp, spec=override)
 
-    def export_linear(w, qp: QuantState):
-        qp = apply_policy(qp, int(w.shape[0]))
-        dq, n_clamped = _export_one(w, qp)
-        prev = report.get(qp.name)
-        spec = qp.spec
-        report[qp.name] = {
+    def record(dq, spec, n_clamped, name, **extra):
+        prev = report.get(name)
+        report[name] = {
             "k": int(dq.w_codes.shape[-2]), "n": int(dq.w_codes.shape[-1]),
             "mode": spec.psum.mode, "gs": spec.psum.gs,
             "n_p": spec.psum.n_p, "int8_bytes": int(dq.w_codes.numel()),
             "clamped_exps": n_clamped + (prev["clamped_exps"] if prev else 0),
-            "count": 1 + (prev["count"] if prev else 0),
+            "count": 1 + (prev["count"] if prev else 0), **extra,
         }
+
+    def export_linear(w, qp: QuantState):
+        qp = apply_policy(qp, int(w.shape[0]))
+        dq, n_clamped = _export_one(w, qp)
+        record(dq, qp.spec, n_clamped, qp.name)
         return {"qp": dq}
+
+    def export_experts(w, qp: QuantState):
+        qp = apply_policy(qp, int(w.shape[-2]))
+        dq, n_clamped = _export_experts(w, qp)
+        record(dq, qp.spec, n_clamped, qp.name, n_experts=int(w.shape[0]))
+        return dq
 
     def walk(tree):
         if not isinstance(tree, dict):
             return tree
         if "w" in tree and isinstance(tree.get("qp"), QuantState):
             return export_linear(tree["w"], tree["qp"])
-        return {k: walk(v) for k, v in tree.items()}
+        # expert banks: [E, K, N] floats beside a shared QuantState
+        banks = [k[3:] for k, v in tree.items()
+                 if k.startswith("qp_") and isinstance(v, QuantState)
+                 and isinstance(tree.get(k[3:]), torch.Tensor)
+                 and tree[k[3:]].dim() == 3]
+        return {k: (export_experts(tree[k[3:]], v)
+                    if k.startswith("qp_") and k[3:] in banks else walk(v))
+                for k, v in tree.items() if k not in banks}
 
     return walk(params), report

@@ -78,10 +78,27 @@ def _bump_token(gathered: torch.Tensor, exp: torch.Tensor,
     return gathered, new_exp
 
 
+def _scatter_pages(pages, page_table, gathered):
+    """Write each slot's gathered view [B, n_max, P, Hkv, hd] back to its
+    pages.  Table rows repeat the null page (an idle slot's row is all
+    null pages), so indices collide.  Every colliding entry writes the
+    data of the LAST such entry in row-major order -- what a sequential
+    scatter leaves, as on the CPU -- so the pool does not depend on the
+    order a parallel scatter applies duplicates.  It matters for MoE:
+    idle slots attend over the null page and their routing takes expert
+    capacity from live tokens."""
+    idx = page_table.long().reshape(-1)
+    order = torch.arange(idx.numel(), device=idx.device)
+    last = torch.where(idx[:, None] == idx[None, :], order[None, :],
+                       -1).amax(dim=1)
+    src = gathered.reshape(idx.numel(), *gathered.shape[2:])[last]
+    return pages.index_put((idx,), src)
+
+
 def _update_pool(pages, exp, x_new, pos, page_table):
     """Write one token per slot; returns (pages', exp', gathered view)."""
     gathered, new_exp = _bump_token(pages[page_table.long()], exp, x_new, pos)
-    pages = pages.index_put((page_table.long(),), gathered)
+    pages = _scatter_pages(pages, page_table, gathered)
     return pages, new_exp, gathered
 
 
@@ -94,7 +111,7 @@ def _update_pool_chunk(pages, exp, x_new, pos, page_table):
     for t in range(x_new.shape[1]):
         g, e = _bump_token(g, e, x_new[:, t:t + 1], pos + t)
         seq.append(e)
-    pages = pages.index_put((page_table.long(),), g)
+    pages = _scatter_pages(pages, page_table, g)
     return pages, e, g, torch.stack(seq)
 
 
