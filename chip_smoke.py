@@ -11,20 +11,27 @@ Phases (each exits non-zero on failure):
              (one nvcc per source, started together).
   kernels    hold each kernel against its plain PyTorch version on the
              card at TinyLlama-1.1B's and OLMoE-1B-7B's shapes: the APSQ
-             GEMMs (generic, m=1) and the W8A8 baseline bit-exact at M
-             in {1, 8, 16}, K in {2048, 5632}, N in {256, 2048, 5632}
-             with per-column exponents; the fused expert GEMMs (APSQ and
-             W8A8) bit-exact at E=64, M in {1, 2, 3, 16}, (K, N) in
+             GEMMs (generic, m=1) bit-exact at M in {1, 8, 16}, K in
+             {2048, 5632}, N in {256, 2048, 5632} with per-column
+             exponents; the W8A8 baseline bit-exact there and at M in
+             {17, 32, 33} (beside torch._int_mm), at ragged shapes and
+             with extreme codes at K=5632; the fused expert GEMMs (APSQ
+             and W8A8) bit-exact at E=64, M in {1, 2, 3, 16}, (K, N) in
              {(2048, 1024), (1024, 2048)}, exponents [E, n_p] and
              [E, n_p, N]; INT8-KV attention (hd=64, Hq=32, Hkv=4 and
-             hd=128, Hq=Hkv=16; decode and prefill-chunk forms) within
-             rtol 2e-5 / atol 2e-6, the bound the JAX package holds its
-             own kernel to.  Times each
-             kernel (device time: calls captured in a CUDA graph, replay
-             timed with CUDA events; ``eager_ms`` adds the wrapper's host
-             dispatch; weights rotate through more copies than the 50 MB
-             L2 holds), its plain version and, where one exists, a single
-             PyTorch call computing the same function.
+             hd=128, Hq=Hkv=16; decode and prefill-chunk forms, the
+             serving shapes, decode over 1024 and 4096 positions, a chunk
+             whose first rows see nothing) within rtol 2e-5 / atol 2e-6,
+             the bound the JAX package holds its own kernel to.  The
+             W8A8 and attention kernels must also repeat their output
+             bit for bit.  Times each kernel (device time: calls captured
+             in a CUDA graph, replay timed with CUDA events; ``eager_ms``
+             adds the wrapper's host dispatch; weights rotate through
+             more copies than the 50 MB L2 holds), its plain version and,
+             where one exists, a single PyTorch call computing the same
+             function.  At the two 8-slot chunk shapes the attention
+             kernel is also timed with one and with two query rows per
+             warp (``rows_per_warp_ms``), the choice its plan makes.
   reference  the tinyllama-smoke model, calibrated and exported on the
              CPU, served on the card and on the CPU: last-chunk logits
              agree within rtol/atol 1e-3 (float ops round differently on
@@ -221,6 +228,58 @@ def bound(bytes_moved: float, ops: float, ops_rate: float):
 # Phase: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
+def baseline_rec(torch, ops, ref, x, ws, errors: list, *,
+                 timed: bool = True) -> dict:
+    """The W8A8 kernel on x @ ws[0]: bit-exact against its plain version
+    and against a second call; with ``timed``, device and eager ms over
+    the rotating weight copies ``ws`` beside the plain version and
+    torch._int_mm (which refuses M <= 16)."""
+    m, k = x.shape
+    n = ws[0].shape[1]
+    got = ops.baseline_matmul_int8(x, ws[0])
+    again = ops.baseline_matmul_int8(x, ws[0])
+    want = ref.baseline_matmul_ref(x, ws[0])
+    torch.cuda.synchronize()
+    err = int((got.long() - want.long()).abs().max())
+    repeat = bool(torch.equal(got, again))
+    if err or not repeat:
+        errors.append(f"W8A8 M={m} K={k} N={n}: max|err|={err}, repeat "
+                      f"equal={repeat}")
+    rec = {"max_abs_err": err, "repeat_equal": repeat,
+           "plan": list(ops.baseline_plan(m, n, k))}
+    if not timed:
+        return rec
+    rec["ms"], rec["eager_ms"] = both_ms(
+        torch, lambda i: ops.baseline_matmul_int8(x, ws[i]), len(ws))
+    rec["plain_ms"], _ = both_ms(torch, lambda i: ref.baseline_matmul_ref(
+        x, ws[i]), len(ws), iters=5)
+    rec["bound_ms"], rec["bound_by"] = bound(
+        m * k + k * n + m * n * 4, 2.0 * m * k * n, INT8_OPS_PER_S)
+    rec["library"] = "torch._int_mm"
+    try:   # one PyTorch call for the same int8 x int8 -> int32 GEMM
+        got_l = torch._int_mm(x, ws[0])
+        rec["library_max_abs_err"] = int(
+            (got_l.long() - want.long()).abs().max())
+        rec["library_ms"] = device_ms(
+            torch, lambda i: torch._int_mm(x, ws[i]), len(ws))
+    except (RuntimeError, TypeError) as e:
+        rec.update(library_ms=None, library_error=str(e).splitlines()[0])
+    return rec
+
+
+def baseline_row(torch, ops, ref, gen, dev, m, k, n, errors: list, *,
+                 timed: bool = True) -> dict:
+    """``baseline_rec`` on fresh random codes at [m, k] @ [k, n]."""
+    # weight copies rotate so the timed reads miss the 50 MB L2
+    copies = max(1, math.ceil(120e6 / (k * n))) if timed else 1
+    ws = [torch.randint(-128, 128, (k, n), generator=gen, device=dev,
+                        dtype=torch.int8) for _ in range(copies)]
+    x = torch.randint(-128, 128, (m, k), generator=gen, device=dev,
+                      dtype=torch.int8)
+    return {"M": m, "K": k, "N": n, "baseline_matmul": baseline_rec(
+        torch, ops, ref, x, ws, errors, timed=timed)}
+
+
 def gemm_checks(torch, records: dict) -> list:
     from repro_torch.kernels.apsq_matmul import ops, ref
     dev = torch.device("cuda")
@@ -242,44 +301,23 @@ def gemm_checks(torch, records: dict) -> list:
                     ).to(torch.int32).contiguous()
             got = ops.apsq_matmul_int8(x, ws[0], exps, gs=gs)
             want = ref.apsq_matmul_ref(x, ws[0], exps, n_p=n_p, gs=gs)
-            got_b = ops.baseline_matmul_int8(x, ws[0])
-            want_b = ref.baseline_matmul_ref(x, ws[0])
             torch.cuda.synchronize()
             err = int((got.long() - want.long()).abs().max())
-            err_b = int((got_b.long() - want_b.long()).abs().max())
             name = "apsq_matmul_m1" if m == 1 else "apsq_matmul"
-            if err or err_b:
-                errors.append(f"GEMM M={m} K={k} N={n}: apsq max|err|={err} "
-                              f"baseline max|err|={err_b}")
+            if err:
+                errors.append(f"GEMM M={m} K={k} N={n}: apsq max|err|={err}")
             t_k, e_k = both_ms(torch, lambda i: ops.apsq_matmul_int8(
                 x, ws[i], exps, gs=gs), copies)
             t_p, _ = both_ms(torch, lambda i: ref.apsq_matmul_ref(
                 x, ws[i], exps, n_p=n_p, gs=gs), copies, iters=5)
-            t_kb, e_kb = both_ms(torch, lambda i: ops.baseline_matmul_int8(
-                x, ws[i]), copies)
-            t_pb, _ = both_ms(torch, lambda i: ref.baseline_matmul_ref(
-                x, ws[i]), copies, iters=5)
-            t_lib, t_lib_err = None, None
-            try:   # one PyTorch call for the same int8 x int8 -> int32 GEMM
-                t_lib = device_ms(torch, lambda i: torch._int_mm(x, ws[i]),
-                                  copies)
-            except (RuntimeError, TypeError) as e:
-                t_lib_err = str(e).splitlines()[0]
-            byts = m * k + k * n + m * n * 4
-            b_ms, b_by = bound(byts + n_p * n * 4, 2.0 * m * k * n,
-                               INT8_OPS_PER_S)
-            bb_ms, bb_by = bound(byts, 2.0 * m * k * n, INT8_OPS_PER_S)
+            b_ms, b_by = bound(m * k + k * n + m * n * 4 + n_p * n * 4,
+                               2.0 * m * k * n, INT8_OPS_PER_S)
             row = {"M": m, "K": k, "N": n, "n_p": n_p, "gs": gs,
                    name: {"ms": t_k, "eager_ms": e_k, "plain_ms": t_p,
                           "bound_ms": b_ms, "bound_by": b_by,
                           "max_abs_err": err},
-                   "baseline_matmul": {"ms": t_kb, "eager_ms": e_kb,
-                                       "plain_ms": t_pb,
-                                       "bound_ms": bb_ms, "bound_by": bb_by,
-                                       "library_ms": t_lib,
-                                       "max_abs_err": err_b}}
-            if t_lib is None:
-                row["baseline_matmul"]["library_error"] = t_lib_err
+                   "baseline_matmul": baseline_rec(torch, ops, ref, x, ws,
+                                                   errors)}
             rows.append(row)
             # the record of each kernel is its main-path decode shape
             if (m, k, n) in ((8, 2048, 5632), (1, 5632, 2048)):
@@ -291,46 +329,34 @@ def gemm_checks(torch, records: dict) -> list:
                     row["baseline_matmul"], shape=f"M={m} K={k} N={n}")
             del ws
     # torch._int_mm refuses M <= 16, so the baseline's library yardstick
-    # is taken at M = 32 (the smallest multiple of 8 it accepts), where
-    # the kernel, its plain version and _int_mm run on the same inputs
-    for k, n in ((2048, 2048), (2048, 5632), (5632, 2048)):
-        m = 32
-        copies = max(1, math.ceil(120e6 / (k * n)))
-        ws = [torch.randint(-128, 128, (k, n), generator=gen, device=dev,
-                            dtype=torch.int8) for _ in range(copies)]
-        x = torch.randint(-128, 128, (m, k), generator=gen, device=dev,
-                          dtype=torch.int8)
-        got_b = ops.baseline_matmul_int8(x, ws[0])
-        want_b = ref.baseline_matmul_ref(x, ws[0])
-        torch.cuda.synchronize()
-        err_b = int((got_b.long() - want_b.long()).abs().max())
-        if err_b:
-            errors.append(f"GEMM M={m} K={k} N={n}: baseline max|err|="
-                          f"{err_b}")
-        t_kb, e_kb = both_ms(torch, lambda i: ops.baseline_matmul_int8(
-            x, ws[i]), copies)
-        t_pb, _ = both_ms(torch, lambda i: ref.baseline_matmul_ref(
-            x, ws[i]), copies, iters=5)
-        lib = {"library": "torch._int_mm"}
-        try:
-            got_l = torch._int_mm(x, ws[0])
-            lib["library_max_abs_err"] = int(
-                (got_l.long() - want_b.long()).abs().max())
-            lib["library_ms"] = device_ms(
-                torch, lambda i: torch._int_mm(x, ws[i]), copies)
-        except (RuntimeError, TypeError) as e:
-            lib.update(library_ms=None, library_error=str(e).splitlines()[0])
-        bb_ms, bb_by = bound(m * k + k * n + m * n * 4, 2.0 * m * k * n,
-                             INT8_OPS_PER_S)
-        row = {"M": m, "K": k, "N": n, "baseline_matmul": {
-            "ms": t_kb, "eager_ms": e_kb, "plain_ms": t_pb,
-            "bound_ms": bb_ms, "bound_by": bb_by, "max_abs_err": err_b,
-            **lib}}
-        rows.append(row)
-        if (k, n) == (2048, 2048):
-            records["baseline_matmul"]["at_library_shape"] = dict(
-                row["baseline_matmul"], shape=f"M={m} K={k} N={n}")
-        del ws
+    # starts at M = 17; the kernel, its plain version and _int_mm run on
+    # the same inputs (M = 32 is the smallest multiple of 8 it takes)
+    for m in (17, 32, 33):
+        for k, n in ((2048, 2048), (2048, 5632), (5632, 2048)):
+            row = baseline_row(torch, ops, ref, gen, dev, m, k, n, errors)
+            rows.append(row)
+            if (m, k, n) == (32, 2048, 2048):
+                records["baseline_matmul"]["at_library_shape"] = dict(
+                    row["baseline_matmul"], shape=f"M={m} K={k} N={n}")
+    # ragged shapes, and extreme codes at K=5632 (|sum| up to 9.2e7)
+    for m, k, n in ((1, 45, 16), (8, 45, 16), (33, 45, 16),
+                    (17, 1100, 300)):
+        rows.append(baseline_row(torch, ops, ref, gen, dev, m, k, n, errors,
+                                 timed=False))
+    for m in (8, 33):
+        for xv, wv in ((-128, -128), (127, 127), (-128, 127)):
+            x = torch.full((m, 5632), xv, dtype=torch.int8, device=dev)
+            w = torch.full((5632, 2048), wv, dtype=torch.int8, device=dev)
+            got = ops.baseline_matmul_int8(x, w)
+            want = ref.baseline_matmul_ref(x, w)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want) or int(got[0, 0]) != 5632 * xv * wv:
+                errors.append(f"W8A8 extreme codes {xv} x {wv} M={m}: "
+                              f"{int(got[0, 0])} vs {5632 * xv * wv}")
+            rows.append({"M": m, "K": 5632, "N": 2048,
+                         "codes": [xv, wv], "baseline_matmul": {
+                             "max_abs_err": int((got.long() - want.long())
+                                                .abs().max())}})
     return rows, errors
 
 
@@ -406,19 +432,50 @@ def expert_checks(torch, records: dict) -> list:
     return rows, errors
 
 
+def rows_per_warp_ms(torch, ops, args, want, errors: list) -> dict:
+    """Device ms of the attention kernel on ``args`` with one and with two
+    query rows per warp, S unsplit, whatever its plan picks; each result
+    is held to ``want`` as the planned one is."""
+    B, S = args[1].shape[:2]
+    C, Hq, Hkv = args[0].shape[1], args[0].shape[2], args[1].shape[2]
+    planned, out = ops.attention_plan, {}
+    for rw in (1, 2):
+        ops.attention_plan = lambda *_, rw=rw: ops.AttentionPlan(
+            rw, math.ceil(C * (Hq // Hkv) / (ops.WARPS * rw)), 1,
+            math.ceil(S / ops.TILE_S) * ops.TILE_S)
+        try:
+            got = ops.int8_kv_attention(*args)
+            torch.cuda.synchronize()
+            if not torch.allclose(got, want, rtol=2e-5, atol=2e-6):
+                errors.append(f"attention B={B} C={C} hd={args[0].shape[3]} "
+                              f"at {rw} rows per warp disagrees")
+            out[rw], _ = both_ms(torch, lambda i: ops.int8_kv_attention(
+                *args), 1)
+        finally:
+            ops.attention_plan = planned
+    return out
+
+
 def attention_checks(torch, records: dict, pages_per_slot: int) -> list:
     import torch.nn.functional as F
     from repro_torch.kernels.int8_kv_attention import ops, ref
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(1)
-    P = 16
-    S = pages_per_slot * P
+    S_serve = pages_per_slot * 16
     errors, rows = [], []
-    # (Hq, Hkv, hd): TinyLlama-1.1B, OLMoE-1B-7B
-    cases = [(heads, label, B, C) for heads in ((32, 4, 64), (16, 16, 128))
-             for label, B, C in (("decode", 8, 0), ("chunk", 1, 16),
-                                 ("chunk", 8, 16))]
-    for (Hq, Hkv, hd), label, B, C in cases:
+    # (Hq, Hkv, hd): TinyLlama-1.1B, OLMoE-1B-7B.  The serving shapes
+    # (8-slot decode, 16-token chunks at B=1 and 8), decode over long
+    # caches at B=1 (S split across blocks), and a chunk at length 5,
+    # whose first rows see no position (the reference averages V there)
+    cases = [(heads, label, B, C, S, fixed)
+             for heads in ((32, 4, 64), (16, 16, 128))
+             for label, B, C, S, fixed in (
+                 ("decode", 8, 0, S_serve, None),
+                 ("chunk", 1, 16, S_serve, None),
+                 ("chunk", 8, 16, S_serve, None),
+                 ("decode", 1, 0, 1024, None), ("decode", 1, 0, 4096, None),
+                 ("chunk", 1, 16, S_serve, 5))]
+    for (Hq, Hkv, hd), label, B, C, S, fixed in cases:
         qshape = (B, Hq, hd) if C == 0 else (B, C, Hq, hd)
         q = torch.randn(qshape, generator=gen, device=dev)
         k = torch.randn((B, S, Hkv, hd), generator=gen, device=dev) * 2
@@ -426,15 +483,20 @@ def attention_checks(torch, records: dict, pages_per_slot: int) -> list:
         kc, ke = ref.quantize_kv_po2(k)
         vc, ve = ref.quantize_kv_po2(v)
         lo = max(C, 1)
-        length = torch.randint(lo, S + 1, (B,), generator=gen, device=dev,
-                               dtype=torch.int32)
+        length = (torch.full((B,), fixed, dtype=torch.int32, device=dev)
+                  if fixed else
+                  torch.randint(lo, S + 1, (B,), generator=gen, device=dev,
+                                dtype=torch.int32))
         got = ops.int8_kv_attention(q, kc, vc, ke, ve, length)
+        again = ops.int8_kv_attention(q, kc, vc, ke, ve, length)
         want = ref.int8_kv_attention_ref(q, kc, vc, ke, ve, length)
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
         ok = bool(torch.allclose(got, want, rtol=2e-5, atol=2e-6))
-        if not ok:
-            errors.append(f"attention {label} B={B} C={C}: max|err|={err}")
+        repeat = bool(torch.equal(got, again))
+        if not ok or not repeat:
+            errors.append(f"attention {label} B={B} C={C} S={S} hd={hd}: "
+                          f"max|err|={err}, repeat equal={repeat}")
         t_k, e_k = both_ms(torch, lambda i: ops.int8_kv_attention(
             q, kc, vc, ke, ve, length), 1)
         t_p, _ = both_ms(torch, lambda i: ref.int8_kv_attention_ref(
@@ -456,21 +518,31 @@ def attention_checks(torch, records: dict, pages_per_slot: int) -> list:
             t_lib = None
             errors_lib = str(e).splitlines()[0]
         # the function reads only the K/V positions some row can see:
-        # up to the largest limit of each batch row (= its length)
+        # up to the largest limit of each batch row (= its length); a row
+        # that sees none averages V over all S
         rows_valid = lim.clamp(min=0, max=S).sum().item() * Hq
-        positions = lim.max(dim=1).values.clamp(min=0, max=S).sum().item()
-        byts = (q.numel() * 4 * 2 + 2 * positions * Hkv * hd
+        blind = (lim <= 0)
+        pos_k = lim.max(dim=1).values.clamp(min=0, max=S)
+        pos_v = torch.where(blind.any(dim=1), S, pos_k)
+        byts = (q.numel() * 4 * 2 + (pos_k + pos_v).sum().item() * Hkv * hd
                 + 2 * B * Hkv * 4 + B * 4)
-        b_ms, b_by = bound(byts, 4.0 * rows_valid * hd, F32_OPS_PER_S)
+        b_ms, b_by = bound(byts, 4.0 * rows_valid * hd
+                           + 2.0 * blind.sum().item() * Hq * S * hd,
+                           F32_OPS_PER_S)
         row = {"form": label, "B": B, "C": max(C, 1), "S": S, "Hq": Hq,
-               "Hkv": Hkv, "hd": hd, "ms": t_k, "eager_ms": e_k,
-               "plain_ms": t_p,
+               "Hkv": Hkv, "hd": hd, "length": fixed, "ms": t_k,
+               "eager_ms": e_k, "plain_ms": t_p,
                "library_ms": t_lib, "bound_ms": b_ms, "bound_by": b_by,
-               "max_abs_err": err, "library": "sdpa on the dequantized cache"}
+               "max_abs_err": err, "repeat_equal": repeat,
+               "plan": list(ops.attention_plan(B, max(C, 1), Hq, Hkv, S)),
+               "library": "sdpa on the dequantized cache"}
         if errors_lib:
             row["library_error"] = errors_lib
+        if label == "chunk" and B == 8:
+            row["rows_per_warp_ms"] = rows_per_warp_ms(
+                torch, ops, (q, kc, vc, ke, ve, length), want, errors)
         rows.append(row)
-        if label == "decode":
+        if label == "decode" and S == S_serve:
             rec = {k_: row[k_] for k_ in ("ms", "eager_ms", "plain_ms",
                                           "library_ms", "bound_ms",
                                           "bound_by", "max_abs_err")}
@@ -1024,7 +1096,8 @@ def main() -> int:
                 "eager_ms": r.get("eager_ms"),
                 "plain_ms": r.get("plain_ms"), "bound_ms": r.get("bound_ms"),
                 "bound_by": r.get("bound_by"),
-                "library_ms": r.get("library_ms"), "shape": r.get("shape"),
+                "library_ms": r.get("library_ms"),
+                "shape": r.get("shape"),
                 **{k: v for k, v in r.items()
                    if k.startswith("at_") or k == "library"}})
         print(json.dumps({"kernels": kernels}), flush=True)

@@ -29,6 +29,9 @@ BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
+NUM_SMS = 132      # streaming multiprocessors of an H100 SXM: the kernels'
+                   # plans size their grids by it
+
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 # kernel name -> (source relative to this package, C entry point, argtypes)
@@ -38,7 +41,7 @@ KERNELS = {
     "apsq_matmul_m1": ("apsq_matmul/csrc/apsq_matmul.cu",
                        "apsq_matmul_m1_launch", [_P] * 4 + [_I] * 5 + [_P]),
     "baseline_matmul": ("apsq_matmul/csrc/apsq_matmul.cu",
-                        "baseline_matmul_launch", [_P] * 3 + [_I] * 3 + [_P]),
+                        "baseline_matmul_launch", [_P] * 3 + [_I] * 6 + [_P]),
     "apsq_expert_matmul": ("apsq_matmul/csrc/apsq_matmul.cu",
                            "apsq_expert_matmul_launch",
                            [_P] * 4 + [_I] * 7 + [_P]),
@@ -47,7 +50,7 @@ KERNELS = {
                                [_P] * 3 + [_I] * 4 + [_P]),
     "int8_kv_attention": ("int8_kv_attention/csrc/int8_kv_attention.cu",
                           "int8_kv_attention_launch",
-                          [_P] * 7 + [_I] * 6 + [_F, _P]),
+                          [_P] * 8 + [_I] * 6 + [_F] + [_I] * 4 + [_P]),
 }
 
 launch_counts: dict = {name: 0 for name in KERNELS}

@@ -8,14 +8,46 @@ the output, launches on the current stream and counts the launch.
 """
 from __future__ import annotations
 
+import functools
+import math
+from typing import NamedTuple
+
 import torch
 
 from .. import _build
+from .._build import NUM_SMS
 from . import ref
 
 # Largest number of live INT8 bank codes per output element the kernel
 # keeps in registers (two packed 64-bit words).
 MAX_BANKS = 16
+
+W8_BN = 64           # columns per block of the W8A8 tensor-core kernel
+W8_KS = 64           # K rows per warp slice of it
+W8_WARPS = 4         # warps per block of it
+
+
+class BaselinePlan(NamedTuple):
+    """How the W8A8 kernel cuts [M, K] @ [K, N]: ``bm`` rows per block
+    (16 or 32), K in ``splits`` ranges of ``k_split`` rows (a multiple of
+    ``W8_WARPS * W8_KS``; the last range shorter where K is not a
+    multiple)."""
+    bm: int
+    splits: int
+    k_split: int
+
+
+@functools.lru_cache(maxsize=256)
+def baseline_plan(m: int, n: int, k: int) -> BaselinePlan:
+    """A pure function of the shapes: K is split over blocks until about
+    three blocks per SM are busy, in ranges of whole rounds of K slices
+    (one slice per warp), so every warp of a block has work."""
+    bm = 16 if m <= 16 else 32
+    tiles = math.ceil(n / W8_BN) * math.ceil(m / bm)
+    rnd = W8_WARPS * W8_KS                    # K rows per round of slices
+    splits = max(1, int(3 * NUM_SMS / tiles + 0.5))
+    k_split = max(1, math.ceil(k / splits / rnd)) * rnd
+    return BaselinePlan(bm, max(1, math.ceil(k / k_split)), k_split)
 
 
 def _check_operands(x_codes, w_codes, *, experts: bool = False):
@@ -148,8 +180,9 @@ def baseline_matmul_int8(x_codes: torch.Tensor,
     out = torch.empty((m, n), dtype=torch.int32, device=x.device)
     if m == 0 or n == 0:
         return out
+    plan = baseline_plan(m, n, k)
     err = _build.entry("baseline_matmul")(
-        x.data_ptr(), w.data_ptr(), out.data_ptr(), m, n, k,
-        _build.stream_ptr(x.device))
+        x.data_ptr(), w.data_ptr(), out.data_ptr(), m, n, k, plan.bm,
+        plan.splits, plan.k_split, _build.stream_ptr(x.device))
     _build.check(err, "baseline_matmul")
     return out

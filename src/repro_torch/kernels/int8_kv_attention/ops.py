@@ -6,15 +6,59 @@ goes to the kernel in ``csrc/int8_kv_attention.cu`` or raises.
 """
 from __future__ import annotations
 
+import functools
 import math
+from typing import NamedTuple
 
 import torch
 
 from .. import _build
+from .._build import NUM_SMS
 from . import ref
 
 # compiled instances: the tests, smoke configs, TinyLlama, OLMoE
 HEAD_DIMS = (8, 16, 64, 128)
+
+TILE_S = 32          # cache positions per tile of the kernel
+WARPS = 4            # warps per block of the kernel
+MIN_SPLIT_TILES = 4  # shortest split: a shorter walk costs less than the
+                     # merge kernel a split brings
+MAX_BLOCKS = 4 * NUM_SMS   # beyond this, two rows per warp instead of one
+
+
+class AttentionPlan(NamedTuple):
+    """How the kernel cuts one call: ``rows_per_warp`` query rows per
+    warp (``WARPS`` warps per block), ``row_blocks`` blocks over the C*G
+    rows of a kv-head, and S cut into ``n_split`` splits of ``split_len``
+    positions (the last one shorter where S is not a multiple)."""
+    rows_per_warp: int
+    row_blocks: int
+    n_split: int
+    split_len: int
+
+
+@functools.lru_cache(maxsize=256)
+def attention_plan(B: int, C: int, Hq: int, Hkv: int,
+                   S: int) -> AttentionPlan:
+    """The kernel's grid for q [B, C, Hq, hd] over a cache of S positions,
+    a pure function of the shapes (so a call repeats its result bit for
+    bit).  One query row per warp, two where the blocks would pass
+    ``MAX_BLOCKS``.  S is split (flash-decoding) only where rows, heads
+    and batch give fewer blocks than the card has SMs and S holds at
+    least two splits of ``MIN_SPLIT_TILES`` tiles; then into splits of
+    that length, or longer ones where ``MAX_BLOCKS`` is reached first."""
+    rows = C * (Hq // Hkv)
+    for rw in (1, 2):
+        row_blocks = math.ceil(rows / (WARPS * rw))
+        if row_blocks * Hkv * B <= MAX_BLOCKS:
+            break
+    base = row_blocks * Hkv * B
+    tiles = max(1, math.ceil(S / TILE_S))
+    if base >= NUM_SMS or tiles < 2 * MIN_SPLIT_TILES:
+        return AttentionPlan(rw, row_blocks, 1, tiles * TILE_S)
+    per = max(MIN_SPLIT_TILES, tiles // math.ceil(MAX_BLOCKS / base))
+    return AttentionPlan(rw, row_blocks, math.ceil(tiles / per),
+                         per * TILE_S)
 
 
 def int8_kv_attention(q: torch.Tensor, k_codes: torch.Tensor,
@@ -47,16 +91,26 @@ def int8_kv_attention(q: torch.Tensor, k_codes: torch.Tensor,
         raise ValueError("attention operands on different devices")
     qf = q4.float().contiguous()
     out = torch.empty_like(qf)
-    # the kernel reads codes 4 at a time: rows must start 4-byte aligned
+    # the kernel copies codes 4 at a time: rows must start 4-byte aligned
     kc, vc = (t if t.is_contiguous() and t.data_ptr() % 4 == 0
               else t.clone(memory_format=torch.contiguous_format)
               for t in (k_codes, v_codes))
+    # 16 at a time where every row starts 16-byte aligned
+    vec16 = hd % 16 == 0 and kc.data_ptr() % 16 == 0 \
+        and vc.data_ptr() % 16 == 0
     ke = k_exp.to(torch.int32).contiguous()
     ve = v_exp.to(torch.int32).contiguous()
+    plan = attention_plan(B, C, Hq, Hkv, S)
+    # split partials: acc [n_split, B*C*Hq, hd], then (m, l) per row
+    part = (torch.empty(plan.n_split * B * C * Hq * (hd + 2),
+                        dtype=torch.float32, device=q.device)
+            if plan.n_split > 1 else out)
     err = _build.entry("int8_kv_attention")(
         qf.data_ptr(), kc.data_ptr(), vc.data_ptr(), ke.data_ptr(),
-        ve.data_ptr(), length.data_ptr(), out.data_ptr(), B, C, Hq, S, Hkv,
-        hd, 1.0 / math.sqrt(hd), _build.stream_ptr(q.device))
+        ve.data_ptr(), length.data_ptr(), out.data_ptr(), part.data_ptr(),
+        B, C, Hq, S, Hkv, hd, 1.0 / math.sqrt(hd), plan.rows_per_warp,
+        plan.n_split, plan.split_len, int(vec16),
+        _build.stream_ptr(q.device))
     _build.check(err, "int8_kv_attention")
     out = out.to(q.dtype)
     return out[:, 0] if squeeze else out

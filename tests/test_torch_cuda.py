@@ -7,12 +7,16 @@ machine without JAX:
 
     python -m pytest -q -m cuda --noconftest tests/test_torch_cuda.py
 
-* APSQ GEMMs (generic and m=1) and the W8A8 baseline: bit-exact.
+* APSQ GEMMs (generic and m=1) and the W8A8 baseline: bit-exact; the
+  W8A8 tensor-core kernel over M, K, N (ragged, misaligned, extreme
+  codes at K=5632) too, and bit-identical on repeat.
 * The fused MoE expert GEMMs (APSQ and W8A8, all experts in one
   launch): bit-exact over E, M (rows past M masked), ragged K, gs and
   both exponent layouts.
 * INT8-KV attention, decode and chunk forms (hd 8, 16, 64 and 128):
-  rtol 2e-5 / atol 2e-6.
+  rtol 2e-5 / atol 2e-6, with S split across blocks (S up to 4096),
+  rows whose limit is <= 0 and a cache view that is 4-byte but not
+  16-byte aligned; bit-identical on repeat, one launch count per call.
 * A CUDA tensor never takes the plain path: the launch counters move.
 * A deployed ``moe_ffn`` on the card makes no host round trip.
 * The paged-cache scatter leaves the same pool on the card as the
@@ -127,6 +131,130 @@ def test_kv_attention_kernel_matches_plain(cuda, B, C, S, Hq, Hkv, hd,
     want = kv_ref.int8_kv_attention_ref(q, kc, vc, ke, ve, length)
     torch.cuda.synchronize()
     torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-6)
+
+
+SPLIT_CASES = [  # (B, C, S, Hq, Hkv, hd, lengths): S split, serving chunks
+    (1, 0, 1024, 32, 4, 64, [1000]), (1, 0, 4096, 32, 4, 64, [4096]),
+    (1, 0, 1024, 16, 16, 128, [17]), (1, 0, 4096, 16, 16, 128, [3000]),
+    (1, 16, 1024, 32, 4, 64, [900]), (1, 16, 4096, 16, 16, 128, [4096]),
+    (1, 16, 96, 32, 4, 64, [40]), (8, 16, 96, 32, 4, 64,
+                                   [16, 20, 33, 50, 64, 80, 95, 96]),
+    (1, 16, 96, 32, 4, 64, [5]),         # rows whose limit is <= 0
+    (2, 16, 96, 16, 16, 128, [3, 96]),   # same, hd=128
+    (8, 16, 96, 16, 16, 128, [16, 17, 30, 41, 64, 80, 95, 96]),
+    (1, 8, 256, 8, 2, 8, [4]), (2, 4, 1024, 4, 2, 16, [30, 1024]),
+    (1, 0, 4096, 4, 1, 8, [1]),          # splits no row sees
+    # batches whose one-row-per-warp grid would pass 4 blocks per SM:
+    # 2 rows per warp
+    (32, 16, 96, 32, 4, 64, [16 + (3 * i) % 81 for i in range(32)]),
+    (32, 16, 96, 16, 16, 128, [16 + (5 * i) % 81 for i in range(32)]),
+    (16, 16, 96, 16, 16, 128, [16 + (7 * i) % 81 for i in range(16)]),
+]
+
+
+def _kv_case(cuda, B, C, S, Hq, Hkv, hd, seed):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    qshape = (B, Hq, hd) if C == 0 else (B, C, Hq, hd)
+    q = torch.randn(qshape, generator=g, device=cuda)
+    kc, ke = kv_ref.quantize_kv_po2(
+        torch.randn((B, S, Hkv, hd), generator=g, device=cuda) * 2)
+    vc, ve = kv_ref.quantize_kv_po2(
+        torch.randn((B, S, Hkv, hd), generator=g, device=cuda))
+    return q, kc, vc, ke, ve
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,C,S,Hq,Hkv,hd,lengths", SPLIT_CASES)
+def test_kv_attention_split_s_matches_plain(cuda, B, C, S, Hq, Hkv, hd,
+                                            lengths):
+    q, kc, vc, ke, ve = _kv_case(cuda, B, C, S, Hq, Hkv, hd, S + hd + C)
+    length = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    before = _build.launch_counts["int8_kv_attention"]
+    got = kv_ops.int8_kv_attention(q, kc, vc, ke, ve, length)
+    again = kv_ops.int8_kv_attention(q, kc, vc, ke, ve, length)
+    want = kv_ref.int8_kv_attention_ref(q, kc, vc, ke, ve, length)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-6)
+    assert torch.equal(got, again)                 # repeats bit for bit
+    # a call that also merges splits still counts one launch
+    assert _build.launch_counts["int8_kv_attention"] == before + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C,S,Hq,Hkv,hd", [
+    (0, 96, 32, 4, 64), (16, 1024, 32, 4, 64), (16, 96, 16, 16, 128),
+    (0, 4096, 16, 16, 128), (4, 64, 4, 2, 16)])
+def test_kv_attention_4_byte_aligned_cache_view(cuda, C, S, Hq, Hkv, hd):
+    """Rows 4-byte but not 16-byte aligned take the 4-byte copies."""
+    B = 2
+    q, kc, vc, ke, ve = _kv_case(cuda, B, C, S, Hq, Hkv, hd, 7 + S + hd)
+    views = []
+    for t in (kc, vc):
+        buf = torch.empty(t.numel() + 16, dtype=torch.int8, device=cuda)
+        off = (4 - buf.data_ptr()) % 16
+        view = buf[off:off + t.numel()].view(t.shape)
+        view.copy_(t)
+        assert view.data_ptr() % 16 == 4 and view.is_contiguous()
+        views.append(view)
+    length = torch.tensor([S // 3, S], dtype=torch.int32, device=cuda)
+    got = kv_ops.int8_kv_attention(q, views[0], views[1], ke, ve, length)
+    want = kv_ref.int8_kv_attention_ref(q, kc, vc, ke, ve, length)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-6)
+
+
+W8A8_CASES = [(m, k, n) for m in (1, 8, 16, 17, 32, 33, 64)
+              for k in (45, 2048, 5632) for n in (16, 2048, 5632)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", W8A8_CASES)
+def test_w8a8_kernel_bit_exact_and_repeatable(cuda, m, k, n):
+    g = torch.Generator(device=cuda).manual_seed(m * 131 + k + n)
+    x = torch.randint(-128, 128, (m, k), generator=g, device=cuda,
+                      dtype=torch.int8)
+    w = torch.randint(-128, 128, (k, n), generator=g, device=cuda,
+                      dtype=torch.int8)
+    before = _build.launch_counts["baseline_matmul"]
+    got = ops.baseline_matmul_int8(x, w)
+    again = ops.baseline_matmul_int8(x, w)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref.baseline_matmul_ref(x, w))
+    assert torch.equal(got, again)
+    assert _build.launch_counts["baseline_matmul"] == before + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("xv,wv", [(-128, -128), (127, 127), (-128, 127),
+                                   (-127, -128)])
+@pytest.mark.parametrize("m", [8, 33])
+def test_w8a8_kernel_extreme_codes_at_k5632(cuda, xv, wv, m):
+    """|sum| reaches 5632 * 16384 = 9.2e7: no wrap, no saturation."""
+    k, n = 5632, 2048
+    x = torch.full((m, k), xv, dtype=torch.int8, device=cuda)
+    w = torch.full((k, n), wv, dtype=torch.int8, device=cuda)
+    got = ops.baseline_matmul_int8(x, w)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref.baseline_matmul_ref(x, w))
+    assert int(got[0, 0]) == k * xv * wv
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(8, 2048, 2048), (17, 48, 40),
+                                   (33, 2048, 5632)])
+def test_w8a8_kernel_misaligned_operands(cuda, m, k, n):
+    """Operands whose rows are not 16/8-byte aligned take byte loads."""
+    g = torch.Generator(device=cuda).manual_seed(m + k + n)
+    ops_in = []
+    for shape in ((m, k), (k, n)):
+        buf = torch.randint(-128, 128, (shape[0] * shape[1] + 8,),
+                            generator=g, device=cuda, dtype=torch.int8)
+        ops_in.append(buf[3:3 + shape[0] * shape[1]].view(shape))
+    x, w = ops_in
+    assert x.data_ptr() % 8 and w.data_ptr() % 8
+    got = ops.baseline_matmul_int8(x, w)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref.baseline_matmul_ref(x, w))
 
 
 @pytest.mark.cuda
