@@ -11,9 +11,13 @@ Phases (each exits non-zero on failure):
              (one nvcc per source, started together).
   kernels    hold each kernel against its plain PyTorch version on the
              card at TinyLlama-1.1B's and OLMoE-1B-7B's shapes: the APSQ
-             GEMMs (generic, m=1) bit-exact at M in {1, 8, 16}, K in
-             {2048, 5632}, N in {256, 2048, 5632} with per-column
-             exponents; the W8A8 baseline bit-exact there and at M in
+             GEMMs (generic, m=1) bit-exact and bit-identical on repeat
+             at M in {1, 2, 4, 8, 16, 32}, K in {2048, 5632}, N in
+             {256, 2048, 5632} with per-column exponents, each row with
+             its plan, at the two record shapes the device time of each
+             of the call's two kernels (``stages_ms``) and at M=1 both
+             partial bodies (``m1_body_ms``); the W8A8 baseline
+             bit-exact at M in {1, 8, 16} and at M in
              {17, 32, 33} (beside torch._int_mm), at ragged shapes and
              with extreme codes at K=5632; the fused expert GEMMs (APSQ
              and W8A8) bit-exact at E=64, M in {1, 2, 3, 16}, (K, N) in
@@ -23,15 +27,16 @@ Phases (each exits non-zero on failure):
              serving shapes, decode over 1024 and 4096 positions, a chunk
              whose first rows see nothing) within rtol 2e-5 / atol 2e-6,
              the bound the JAX package holds its own kernel to.  The
-             W8A8 and attention kernels must also repeat their output
-             bit for bit.  Times each kernel (device time: calls captured
-             in a CUDA graph, replay timed with CUDA events; ``eager_ms``
-             adds the wrapper's host dispatch; weights rotate through
-             more copies than the 50 MB L2 holds), its plain version and,
-             where one exists, a single PyTorch call computing the same
-             function.  At the two 8-slot chunk shapes the attention
-             kernel is also timed with one and with two query rows per
-             warp (``rows_per_warp_ms``), the choice its plan makes.
+             APSQ, W8A8 and attention kernels must also repeat their
+             output bit for bit.  Times each kernel (device time: calls
+             captured in a CUDA graph, replay timed with CUDA events;
+             ``eager_ms`` adds the wrapper's host dispatch; weights
+             rotate through more copies than the 50 MB L2 holds), its
+             plain version and, where one exists, a single PyTorch call
+             computing the same function.  At the two 8-slot chunk
+             shapes the attention kernel is also timed with one and with
+             two query rows per warp (``rows_per_warp_ms``), the choice
+             its plan makes.
   reference  the tinyllama-smoke model, calibrated and exported on the
              CPU, served on the card and on the CPU: last-chunk logits
              agree within rtol/atol 1e-3 (float ops round differently on
@@ -71,13 +76,15 @@ W8A8).  Launch counts are zeroed just before each and read just after;
 every kernel of each path must have launched.  The line before the
 last holds the per-kernel record: ``launches`` is the count of the path
 named in ``path``, ``launches_by_path`` each path's own count (never a
-sum).  The last line is
-``{"ok": true, "device": {...}}``.  Details go to
-``chiprun_out/chip_smoke.json``.
+sum).  Each serving phase records ``tokens_sha256``, a digest of its
+batched engine's greedy tokens, so two trees can be compared on the
+same seed.  The last line is ``{"ok": true, "device": {...}}``.
+Details go to ``chiprun_out/chip_smoke.json``.
 """
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import math
 import os
@@ -280,48 +287,111 @@ def baseline_row(torch, ops, ref, gen, dev, m, k, n, errors: list, *,
         torch, ops, ref, x, ws, errors, timed=timed)}
 
 
+APSQ_M = (1, 2, 4, 8, 16, 32)   # decode slots, prefill chunks, 32-row blocks
+APSQ_KN = ((2048, 256), (2048, 2048), (2048, 5632), (5632, 2048))
+
+
+def apsq_case(torch, ref, gen, dev, m, k, n):
+    """Random codes at a TinyLlama projection [m, k] @ [k, n] under
+    mix2_ffn4 (attention n_p=4 gs=2, FFN n_p=8 gs=4), with per-column
+    exponents; weight copies rotate so the timed reads miss the 50 MB
+    L2.  Returns x, the weight copies, exps and gs."""
+    n_p, gs = (4, 2) if n != 5632 and k == 2048 else (8, 4)
+    copies = max(1, math.ceil(120e6 / (k * n)))
+    ws = [torch.randint(-128, 128, (k, n), generator=gen, device=dev,
+                        dtype=torch.int8) for _ in range(copies)]
+    x = torch.randint(-128, 128, (m, k), generator=gen, device=dev,
+                      dtype=torch.int8)
+    base = ref.choose_exps(x, ws[0], n_p=n_p, gs=gs)
+    exps = (base[:, None] + torch.arange(n, device=dev)[None] % 3
+            ).to(torch.int32).contiguous()
+    return x, ws, exps, gs
+
+
+def apsq_rec(torch, ops, ref, x, ws, exps, gs, errors: list) -> dict:
+    """The APSQ kernel on x @ ws[0]: bit-exact against its plain version
+    and against a second call; device and eager ms over the rotating
+    weight copies ``ws`` beside the plain version, and the bound."""
+    m, k = x.shape
+    n, n_p = ws[0].shape[1], exps.shape[0]
+    got = ops.apsq_matmul_int8(x, ws[0], exps, gs=gs)
+    again = ops.apsq_matmul_int8(x, ws[0], exps, gs=gs)
+    want = ref.apsq_matmul_ref(x, ws[0], exps, n_p=n_p, gs=gs)
+    torch.cuda.synchronize()
+    err = int((got.long() - want.long()).abs().max())
+    repeat = bool(torch.equal(got, again))
+    if err or not repeat:
+        errors.append(f"GEMM M={m} K={k} N={n}: apsq max|err|={err}, "
+                      f"repeat equal={repeat}")
+    t_k, e_k = both_ms(torch, lambda i: ops.apsq_matmul_int8(
+        x, ws[i], exps, gs=gs), len(ws))
+    t_p, _ = both_ms(torch, lambda i: ref.apsq_matmul_ref(
+        x, ws[i], exps, n_p=n_p, gs=gs), len(ws), iters=5)
+    b_ms, b_by = bound(m * k + k * n + m * n * 4 + n_p * n * 4,
+                       2.0 * m * k * n, INT8_OPS_PER_S)
+    return {"ms": t_k, "eager_ms": e_k, "plain_ms": t_p, "bound_ms": b_ms,
+            "bound_by": b_by, "max_abs_err": err, "repeat_equal": repeat}
+
+
+def stages_ms(torch, fn, n_inputs: int, iters: int = 20) -> dict:
+    """Device ms per call of each kernel that ``fn(i)`` launches (the
+    APSQ call's partial and epilogue kernels), from torch.profiler."""
+    from torch.profiler import ProfilerActivity
+    fn(0)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(iters):
+            fn(i % n_inputs)
+        torch.cuda.synchronize()
+    return {r["name"]: r["device_ms"] / iters
+            for r in profile_summary(prof, 1.0)["top"]}
+
+
+def m1_body_ms(torch, ops, ref, x, ws, exps, gs, errors: list) -> dict:
+    """Device ms of the M == 1 kernel with each partial body (the
+    one-row dp4a body, bm 1, and the tensor-core body, bm 16), whatever
+    its plan picks; each result is held bit-exact as the planned one."""
+    planned, out = ops.apsq_plan, {}
+    want = ref.apsq_matmul_ref(x, ws[0], exps, n_p=exps.shape[0], gs=gs)
+    for bm, label in ((1, "dp4a"), (16, "mma")):
+        ops.apsq_plan = lambda *a, bm=bm: planned(*a)._replace(bm=bm)
+        try:
+            got = ops.apsq_matmul_int8(x, ws[0], exps, gs=gs)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                errors.append(f"apsq M=1 {label} body disagrees")
+            out[label], _ = both_ms(torch, lambda i: ops.apsq_matmul_int8(
+                x, ws[i], exps, gs=gs), len(ws))
+        finally:
+            ops.apsq_plan = planned
+    return out
+
+
 def gemm_checks(torch, records: dict) -> list:
     from repro_torch.kernels.apsq_matmul import ops, ref
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     errors, rows = [], []
-    shapes = [(2048, 256), (2048, 2048), (2048, 5632), (5632, 2048)]
-    for m in (1, 8, 16):
-        for k, n in shapes:
-            n_p, gs = (4, 2) if n != 5632 and k == 2048 else (8, 4)
-            # weight copies rotate so the timed reads miss the 50 MB L2
-            copies = max(1, math.ceil(120e6 / (k * n)))
-            ws = [torch.randint(-128, 128, (k, n), generator=gen,
-                                device=dev, dtype=torch.int8)
-                  for _ in range(copies)]
-            x = torch.randint(-128, 128, (m, k), generator=gen, device=dev,
-                              dtype=torch.int8)
-            base = ref.choose_exps(x, ws[0], n_p=n_p, gs=gs)
-            exps = (base[:, None] + torch.arange(n, device=dev)[None] % 3
-                    ).to(torch.int32).contiguous()
-            got = ops.apsq_matmul_int8(x, ws[0], exps, gs=gs)
-            want = ref.apsq_matmul_ref(x, ws[0], exps, n_p=n_p, gs=gs)
-            torch.cuda.synchronize()
-            err = int((got.long() - want.long()).abs().max())
+    for m in APSQ_M:
+        for k, n in APSQ_KN:
+            x, ws, exps, gs = apsq_case(torch, ref, gen, dev, m, k, n)
+            n_p = exps.shape[0]
             name = "apsq_matmul_m1" if m == 1 else "apsq_matmul"
-            if err:
-                errors.append(f"GEMM M={m} K={k} N={n}: apsq max|err|={err}")
-            t_k, e_k = both_ms(torch, lambda i: ops.apsq_matmul_int8(
-                x, ws[i], exps, gs=gs), copies)
-            t_p, _ = both_ms(torch, lambda i: ref.apsq_matmul_ref(
-                x, ws[i], exps, n_p=n_p, gs=gs), copies, iters=5)
-            b_ms, b_by = bound(m * k + k * n + m * n * 4 + n_p * n * 4,
-                               2.0 * m * k * n, INT8_OPS_PER_S)
-            row = {"M": m, "K": k, "N": n, "n_p": n_p, "gs": gs,
-                   name: {"ms": t_k, "eager_ms": e_k, "plain_ms": t_p,
-                          "bound_ms": b_ms, "bound_by": b_by,
-                          "max_abs_err": err},
-                   "baseline_matmul": baseline_rec(torch, ops, ref, x, ws,
-                                                   errors)}
+            rec = apsq_rec(torch, ops, ref, x, ws, exps, gs, errors)
+            rec["plan"] = list(ops.apsq_plan(m, n, k, n_p))
+            row = {"M": m, "K": k, "N": n, "n_p": n_p, "gs": gs, name: rec}
+            if m in (1, 8, 16):
+                row["baseline_matmul"] = baseline_rec(torch, ops, ref, x, ws,
+                                                      errors)
             rows.append(row)
             # the record of each kernel is its main-path decode shape
             if (m, k, n) in ((8, 2048, 5632), (1, 5632, 2048)):
-                records[name] = dict(row[name], library_ms=None,
+                call = lambda i: ops.apsq_matmul_int8(x, ws[i], exps, gs=gs)
+                rec["stages_ms"] = stages_ms(torch, call, len(ws))
+                if m == 1:
+                    rec["m1_body_ms"] = m1_body_ms(torch, ops, ref, x, ws,
+                                                   exps, gs, errors)
+                records[name] = dict(rec, library_ms=None,
                                      shape=f"M={m} K={k} N={n} n_p={n_p} "
                                            f"gs={gs}")
             if (m, k, n) == (8, 2048, 2048):
@@ -697,6 +767,8 @@ def serve_all(torch, _build, dev, eng, reqs, profile: bool,
     info["profiled"] = profile      # a traced run is slower
     info["launches"] = dict(_build.launch_counts)
     n_tok = sum(len(r.out) for r in done)
+    info["tokens_sha256"] = hashlib.sha256(json.dumps(
+        sorted((r.uid, r.out) for r in done)).encode()).hexdigest()
     info.update(requests=len(done), generated_tokens=n_tok,
                 tokens_per_s=n_tok / info["serve_s"],
                 decode_dispatches=eng.decode_dispatches,
@@ -1099,7 +1171,8 @@ def main() -> int:
                 "library_ms": r.get("library_ms"),
                 "shape": r.get("shape"),
                 **{k: v for k, v in r.items()
-                   if k.startswith("at_") or k == "library"}})
+                   if k.startswith("at_") or k in (
+                       "library", "plan", "stages_ms", "m1_body_ms")}})
         print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -37,9 +37,9 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # kernel name -> (source relative to this package, C entry point, argtypes)
 KERNELS = {
     "apsq_matmul": ("apsq_matmul/csrc/apsq_matmul.cu", "apsq_matmul_launch",
-                    [_P] * 4 + [_I] * 6 + [_P]),
+                    [_P] * 5 + [_I] * 9 + [_P]),
     "apsq_matmul_m1": ("apsq_matmul/csrc/apsq_matmul.cu",
-                       "apsq_matmul_m1_launch", [_P] * 4 + [_I] * 5 + [_P]),
+                       "apsq_matmul_m1_launch", [_P] * 5 + [_I] * 8 + [_P]),
     "baseline_matmul": ("apsq_matmul/csrc/apsq_matmul.cu",
                         "baseline_matmul_launch", [_P] * 3 + [_I] * 6 + [_P]),
     "apsq_expert_matmul": ("apsq_matmul/csrc/apsq_matmul.cu",

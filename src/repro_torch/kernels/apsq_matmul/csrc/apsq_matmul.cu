@@ -2,18 +2,21 @@
 //
 // Replaces the Pallas TPU kernels of repro/kernels/apsq_matmul/kernel.py:
 //   * apsq_matmul_kernel     (:214, body _apsq_kernel :115)
-//       -> apsq_matmul_launch     (generic M)
+//       -> apsq_matmul_launch     (M >= 2: int8 tensor-core tile partials,
+//          apsq_partial_mma_kernel, then apsq_epilogue_kernel)
 //   * apsq_matmul_m1_kernel  (:294, body _apsq_m1_kernel :271 and
 //                             _algorithm1_unrolled :84)
-//       -> apsq_matmul_m1_launch  (M == 1 decode)
+//       -> apsq_matmul_m1_launch  (M == 1 decode: the same two stages, the
+//          partials from the one-row body its plan picks)
 //   * baseline_matmul_kernel (:509, body _baseline_kernel :167)
 //       -> baseline_matmul_launch (INT32-accumulator W8A8, on the int8
-//          tensor cores: w8a8_mma_kernel at the end of this file)
+//          tensor cores: w8a8_mma_kernel)
 //   * apsq_expert_matmul_kernel (:419, body _apsq_expert_kernel :339)
-//       -> apsq_expert_matmul_launch (fused MoE expert bank)
+//       -> apsq_expert_matmul_launch (fused MoE expert bank, gemm_kernel)
 //   * baseline_expert_matmul_kernel (:472, body _baseline_expert_kernel
 //                                    :395)
-//       -> baseline_expert_matmul_launch (INT32-accumulator expert bank)
+//       -> baseline_expert_matmul_launch (INT32-accumulator expert bank,
+//          gemm_kernel)
 //
 // Semantics: bit-exact with the integer oracle (ref.py).  [M, K] int8 x
 // [K, N] int8 -> [M, N] int32 in product-scale units, K = n_p * bk (the
@@ -22,33 +25,52 @@
 // [0, 32) gives 0 for << and the sign for >>; adds and << wrap mod 2^32
 // (done on uint32 here, where C++ would leave overflow undefined).
 //
-// Design.  On the TPU the K grid axis is sequential and the gs INT8 PSUM
-// banks live in VMEM scratch across grid steps.  Blocks on Hopper run in
-// no order, so here ONE block owns 32 output columns (one per lane) x BM
-// rows and walks all n_p PSUM tiles itself.  Its 8 warps split each
-// tile's K range (neighbouring lanes read neighbouring weight bytes), the
-// per-warp INT32 partial products are summed in shared memory, and warp
-// 0 requantizes the tile on the spot: the <= gs stored INT8 codes of the
-// current group stay in its registers, packed 8 to a 64-bit word
-// (gs <= 16), exactly the recurrence of _algorithm1_unrolled.  Activation
-// rows are staged through shared memory in KC-byte chunks.
-//
-// Expert banks.  The Pallas expert kernels put the expert on a grid axis
-// of one pallas_call; here it is blockIdx.z, and each block offsets x,
-// w, out and the exponent bank ([E, n_p] or [E, n_p, N]) by its expert,
-// so one launch serves all E experts with the same Algorithm-1 body.
-// M is the expert capacity (1-3 rows at OLMoE serving shapes): the
-// launch picks BM in {1, 2, 4, 8} from M and masks the rows past M,
-// where the JAX wrapper pads M to 8.
-
-// Bound on the H100: at decode (M <= 16) every weight byte is read once
-// and reused M times, so the bound is bytes (K*N weight bytes at
-// 3.35 TB/s); at prefill M it becomes int8 operations (2*M*K*N at the
-// int8 tensor-core peak).  An expert bank reads all E*K*N weight bytes
+// Bound on the H100: at serving M (1-16 rows: decode slots, prefill
+// chunks) every weight byte is read once and reused M times, so the
+// bound is bytes (K*N weight bytes at 3.35 TB/s: 3.4 us at K=2048
+// N=5632); at large M it becomes int8 operations (2*M*K*N at the int8
+// tensor-core peak).  An expert bank reads all E*K*N weight bytes
 // whatever the routing (E*K*N at 3.35 TB/s: 40 us for one OLMoE expert
-// GEMM, 64 x 2048 x 1024).  The Algorithm-1 kernels (gemm_kernel) use
-// scalar int32 multiply-adds, not tensor cores: correct first, fast in a
-// later change.
+// GEMM, 64 x 2048 x 1024).
+//
+// Algorithm 1 on Hopper (apsq_matmul_launch, apsq_matmul_m1_launch).  On
+// the TPU the K grid axis is sequential and the gs INT8 PSUM banks live
+// in VMEM scratch across grid steps.  But each tile's INT32 partial
+// x[:, tile] @ w[tile, :] is an exact integer sum that does not depend on
+// the recurrence: only the n_p-step requantization is sequential.  So:
+//
+// * Stage 1 computes every tile's partial at once, on the int8 tensor
+//   cores, with the W8A8 kernel's operand path (mma_partial below: 16 K
+//   rows x 8 columns per lane, a __byte_perm 4x4 transpose, mma.sync
+//   m16n8k32).  Its grid is (64 columns, BM rows, PSUM tile x K range):
+//   a block's K range never crosses its tile's end, which plays the role
+//   of ke (a bk that is no multiple of 16 loads zeros past it), and a
+//   tile is cut into `splits` ranges until about three blocks per SM are
+//   busy (ops.apsq_plan).  Each block stores its partial with plain
+//   stores into its own slot of a [n_p * splits, M, N] int32 scratch, so
+//   no memset and no atomics across blocks: weights are read once,
+//   whatever M <= BM.
+// * Stage 2 (apsq_epilogue_kernel), one thread per output element, sums
+//   each tile's split slots (int32 adds commute mod 2^32: every order
+//   gives the same bits) and walks Algorithm 1 over the n_p values, each
+//   group's INT8 codes folded into one running int32 sum as they are
+//   made.  The scratch (1.4 MB at M=8 N=5632 n_p=8) stays in the 50 MB
+//   L2.
+// * At M == 1 the m16 tensor-core tile wastes 15 of its 16 rows, so the
+//   plan may take a one-row body instead (apsq_partial_dp4a_kernel: the
+//   same transposed weight words into __dp4a, the sums met by warp
+//   shuffles), whichever was measured faster at M=1 K=5632 N=2048.
+//
+// Expert banks (gemm_kernel: scalar int32 multiply-adds, no tensor
+// cores).  One block owns 32 output columns (one per lane) x BM
+// rows and walks all n_p PSUM tiles itself; its 8 warps split each
+// tile's K range, the per-warp partials are summed in shared memory and
+// warp 0 requantizes the tile on the spot.  The expert is blockIdx.z:
+// each block offsets x, w, out and the exponent bank ([E, n_p] or
+// [E, n_p, N]) by its expert, so one launch serves all E experts.  M is
+// the expert capacity (1-3 rows at OLMoE serving shapes): the launch
+// picks BM in {1, 2, 4, 8} from M and masks the rows past M, where the
+// JAX wrapper pads M to 8.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -341,17 +363,18 @@ __device__ __forceinline__ uint4 w8_load_x(const int8_t* __restrict__ x,
   return make_uint4(v[0], v[1], v[2], v[3]);
 }
 
+// The block's INT32 partial product x[m0 : m0+BM, kb : ke] @
+// w[kb : ke, n0 : n0+64] into the shared `tile` (zeroed here): its warps
+// take 64-deep K slices in turn and fold their sums in with shared-memory
+// atomics.  Ends with the tile complete (after a __syncthreads).
 template <int BM>
-__global__ void __launch_bounds__(W8_THREADS)
-w8a8_mma_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
-                int32_t* __restrict__ out, int M, int N, int K, int k_split,
-                int x_vec, int w_vec) {
+__device__ __forceinline__ void mma_partial(
+    const int8_t* __restrict__ x, const int8_t* __restrict__ w, int M,
+    int N, int K, int m0, int n0, int kb, int ke, bool x_vec, bool w_vec,
+    int32_t (*tile)[W8_BN + 4]) {
   constexpr int MT = BM / 16;                  // m16 tiles
-  __shared__ int32_t tile[BM][W8_BN + 4];
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, t = lane % 4;
-  const int n0 = blockIdx.x * W8_BN, m0 = blockIdx.y * BM;
-  const int kb = blockIdx.z * k_split, ke = min(K, kb + k_split);
   for (int i = threadIdx.x; i < BM * W8_BN; i += W8_THREADS)
     tile[i / W8_BN][i % W8_BN] = 0;
   int32_t acc[MT][8][4];
@@ -409,6 +432,17 @@ w8a8_mma_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
         atomicAdd(&tile[16 * mt + g + 8 * (c / 2)][16 * t + 8 * (c % 2) + q],
                   acc[mt][q][c]);
   __syncthreads();
+}
+
+template <int BM>
+__global__ void __launch_bounds__(W8_THREADS)
+w8a8_mma_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
+                int32_t* __restrict__ out, int M, int N, int K, int k_split,
+                int x_vec, int w_vec) {
+  __shared__ int32_t tile[BM][W8_BN + 4];
+  const int n0 = blockIdx.x * W8_BN, m0 = blockIdx.y * BM;
+  const int kb = blockIdx.z * k_split, ke = min(K, kb + k_split);
+  mma_partial<BM>(x, w, M, N, K, m0, n0, kb, ke, x_vec, w_vec, tile);
   for (int i = threadIdx.x; i < BM * W8_BN; i += W8_THREADS) {
     const int r = i / W8_BN, cc = i % W8_BN;
     const int m = m0 + r, n = n0 + cc;
@@ -442,22 +476,212 @@ int launch_w8a8(const void* x, const void* w, void* out, int M, int N, int K,
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// Algorithm 1 in two stages (apsq_matmul_launch, apsq_matmul_m1_launch):
+// tile partials into a [n_p * splits, M, N] int32 scratch, then the
+// recurrence per output element (see the note at the top of the file).
+
+constexpr int EPI_THREADS = 256;
+constexpr int EPI_TILES = 8;     // tiles whose partials load together
+
+// The K range [kb, ke) of partial slot z: PSUM tile z / splits, range
+// z % splits of it, never past the tile's end.
+__device__ __forceinline__ void tile_range(int z, int bk, int splits,
+                                           int k_split, int* kb, int* ke) {
+  const int i = z / splits, s = z - i * splits;
+  *kb = i * bk + s * k_split;
+  *ke = min(i * bk + bk, *kb + k_split);
+}
+
+// Algorithm 1 for output element idx = m * N + n over its n_p tile
+// partials (tile i's is the wrapping sum of its `splits` slots, mn
+// apart): APSQ at group starts, PSQ on tails, the final tile closing
+// mid-group.  Where gemm_kernel keeps the group's INT8 codes and
+// dequantizes them at the next fold, each code is dequantized as it is
+// made into one running int32 sum (`carry`): the same values added mod
+// 2^32 in another order, so the same bits, with no bank registers and no
+// exponent reloads.  Partials and exponents of EPI_TILES tiles load
+// together, so a thread waits about one L2 round trip per EPI_TILES
+// tiles.
+__device__ __forceinline__ int32_t algorithm1(
+    const int32_t* __restrict__ part, const int32_t* __restrict__ exps,
+    size_t mn, size_t idx, int n, int N, int n_p, int splits, int gs,
+    int exp_cols) {
+  const int last = n_p - 1;
+  int32_t carry = 0, result = 0;
+  for (int i0 = 0; i0 < n_p; i0 += EPI_TILES) {
+    int32_t p[EPI_TILES], e[EPI_TILES];
+#pragma unroll
+    for (int j = 0; j < EPI_TILES; ++j) {
+      const int i = min(i0 + j, last);
+      e[j] = exp_at(exps, i, n, N, exp_cols);
+      p[j] = part[(size_t)i * splits * mn + idx];
+    }
+    for (int s = 1; s < splits; ++s)
+#pragma unroll
+      for (int j = 0; j < EPI_TILES; ++j)
+        p[j] = wadd(p[j], part[((size_t)min(i0 + j, last) * splits + s) *
+                               mn + idx]);
+#pragma unroll
+    for (int j = 0; j < EPI_TILES; ++j) {
+      const int i = i0 + j;
+      if (i > last) break;
+      if (i % gs == 0) {                     // group start: APSQ
+        carry = deq(quant(wadd(p[j], carry), e[j]), e[j]);
+        result = carry;                      // the output if i == last
+      } else if (i < last) {                 // tail tile: plain PSQ
+        carry = wadd(carry, deq(quant(p[j], e[j]), e[j]));
+      } else {                               // final tile closes mid-group
+        result = deq(quant(wadd(p[j], carry), e[j]), e[j]);
+      }
+    }
+  }
+  return result;
+}
+
+template <int BM>
+__global__ void __launch_bounds__(W8_THREADS)
+apsq_partial_mma_kernel(const int8_t* __restrict__ x,
+                        const int8_t* __restrict__ w,
+                        int32_t* __restrict__ part, int M, int N, int bk,
+                        int splits, int k_split, int x_vec, int w_vec) {
+  __shared__ int32_t tile[BM][W8_BN + 4];
+  const int n0 = blockIdx.x * W8_BN, m0 = blockIdx.y * BM;
+  int kb, ke;
+  tile_range(blockIdx.z, bk, splits, k_split, &kb, &ke);
+  mma_partial<BM>(x, w, M, N, (int)(gridDim.z / splits) * bk, m0, n0, kb,
+                  ke, x_vec, w_vec, tile);
+  int32_t* dst = part + (size_t)blockIdx.z * M * N;
+  for (int i = threadIdx.x; i < BM * W8_BN; i += W8_THREADS) {
+    const int r = i / W8_BN, cc = i % W8_BN;
+    const int m = m0 + r, n = n0 + cc;
+    if (m < M && n < N) dst[(size_t)m * N + n] = tile[r][cc];
+  }
+}
+
+// The one-row body (M == 1): each lane loads and transposes the same 16 K
+// rows x 8 columns as mma_partial, and __dp4a takes each transposed word
+// (4 K of one column) against the 4 activation bytes of those K.  The 4
+// lanes of a column group meet by shuffles, the 4 warps in shared memory.
+__global__ void __launch_bounds__(W8_THREADS)
+apsq_partial_dp4a_kernel(const int8_t* __restrict__ x,
+                         const int8_t* __restrict__ w,
+                         int32_t* __restrict__ part, int N, int bk,
+                         int splits, int k_split, int x_vec, int w_vec) {
+  __shared__ int32_t red[W8_WARPS][W8_BN];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int n0 = blockIdx.x * W8_BN, col = n0 + 8 * g;
+  const int K = (int)(gridDim.z / splits) * bk;
+  int kb, ke;
+  tile_range(blockIdx.z, bk, splits, k_split, &kb, &ke);
+  int32_t acc[8];
+#pragma unroll
+  for (int q = 0; q < 8; ++q) acc[q] = 0;
+  for (int k0 = kb + warp * W8_KS; k0 < ke; k0 += W8_WARPS * W8_KS) {
+    const int kr = k0 + 16 * t;
+    uint2 wr[16];
+#pragma unroll
+    for (int i = 0; i < 16; ++i)
+      wr[i] = w8_load_w(w, kr + i, col, N, ke, w_vec);
+    const uint4 xr = w8_load_x(x, 0, kr, 1, K, ke, x_vec);
+#pragma unroll
+    for (int hh = 0; hh < 4; ++hh) {          // K rows kr + 4hh .. + 3
+      uint32_t b[8];
+      const int i = 4 * hh;
+      transpose4x4(wr[i].x, wr[i + 1].x, wr[i + 2].x, wr[i + 3].x, &b[0]);
+      transpose4x4(wr[i].y, wr[i + 1].y, wr[i + 2].y, wr[i + 3].y, &b[4]);
+      const int xw = (int)word(xr, hh);
+#pragma unroll
+      for (int q = 0; q < 8; ++q) acc[q] = __dp4a((int)b[q], xw, acc[q]);
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < 8; ++q) {
+    acc[q] = wadd(acc[q], __shfl_xor_sync(0xffffffffu, acc[q], 1));
+    acc[q] = wadd(acc[q], __shfl_xor_sync(0xffffffffu, acc[q], 2));
+  }
+  if (t == 0)
+#pragma unroll
+    for (int q = 0; q < 8; ++q) red[warp][8 * g + q] = acc[q];
+  __syncthreads();
+  if (threadIdx.x < W8_BN && n0 + (int)threadIdx.x < N) {
+    int32_t p = 0;
+#pragma unroll
+    for (int v = 0; v < W8_WARPS; ++v) p = wadd(p, red[v][threadIdx.x]);
+    part[(size_t)blockIdx.z * N + n0 + threadIdx.x] = p;
+  }
+}
+
+// One thread per output element.
+__global__ void __launch_bounds__(EPI_THREADS)
+apsq_epilogue_kernel(const int32_t* __restrict__ part,
+                     const int32_t* __restrict__ exps,
+                     int32_t* __restrict__ out, int M, int N, int n_p,
+                     int splits, int gs, int exp_cols) {
+  const size_t mn = (size_t)M * N;
+  const size_t idx = (size_t)blockIdx.x * EPI_THREADS + threadIdx.x;
+  if (idx >= mn) return;
+  out[idx] = algorithm1(part, exps, mn, idx, (int)(idx % N), N, n_p, splits,
+                        gs, exp_cols);
+}
+
+// bm: 16 or 32 rows per block on the tensor cores, 1 for the one-row body
+// (M == 1); each PSUM tile in `splits` K ranges of k_split rows.  `part`
+// holds n_p * splits * M * N int32.
+int launch_apsq(const void* x, const void* w, const void* exps, void* part,
+                void* out, int M, int N, int n_p, int bk, int gs,
+                int exp_cols, int bm, int splits, int k_split, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  const bool x_vec = bk % 16 == 0 && k_split % 16 == 0 &&
+                     (uintptr_t)x % 16 == 0;
+  const bool w_vec = N % 8 == 0 && (uintptr_t)w % 8 == 0;
+  const int8_t* xp = (const int8_t*)x;
+  const int8_t* wp = (const int8_t*)w;
+  int32_t* pp = (int32_t*)part;
+  if (splits < 1 || (bm == 1 && M != 1)) return -1;
+  dim3 grid((N + W8_BN - 1) / W8_BN, (M + bm - 1) / bm, n_p * splits);
+  if (bm == 1)
+    apsq_partial_dp4a_kernel<<<grid, W8_THREADS, 0, st>>>(
+        xp, wp, pp, N, bk, splits, k_split, x_vec, w_vec);
+  else if (bm == 16)
+    apsq_partial_mma_kernel<16><<<grid, W8_THREADS, 0, st>>>(
+        xp, wp, pp, M, N, bk, splits, k_split, x_vec, w_vec);
+  else if (bm == 32)
+    apsq_partial_mma_kernel<32><<<grid, W8_THREADS, 0, st>>>(
+        xp, wp, pp, M, N, bk, splits, k_split, x_vec, w_vec);
+  else
+    return -1;
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const size_t mn = (size_t)M * N;
+  apsq_epilogue_kernel<<<(unsigned)((mn + EPI_THREADS - 1) / EPI_THREADS),
+                         EPI_THREADS, 0, st>>>(
+      pp, (const int32_t*)exps, (int32_t*)out, M, N, n_p, splits, gs,
+      exp_cols);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
+// bm, splits, k_split: the wrapper's plan (ops.apsq_plan); part: the
+// partials' scratch, n_p * splits * M * N int32.
 extern "C" int apsq_matmul_launch(const void* x, const void* w,
-                                  const void* exps, void* out, int M, int N,
-                                  int n_p, int bk, int gs, int exp_cols,
-                                  void* stream) {
-  return launch<GEN_BM, true>(x, w, exps, out, M, N, n_p, bk, gs, exp_cols,
-                              stream);
+                                  const void* exps, void* part, void* out,
+                                  int M, int N, int n_p, int bk, int gs,
+                                  int exp_cols, int bm, int splits,
+                                  int k_split, void* stream) {
+  return launch_apsq(x, w, exps, part, out, M, N, n_p, bk, gs, exp_cols, bm,
+                     splits, k_split, stream);
 }
 
 extern "C" int apsq_matmul_m1_launch(const void* x, const void* w,
-                                     const void* exps, void* out, int N,
-                                     int n_p, int bk, int gs, int exp_cols,
-                                     void* stream) {
-  return launch<1, true>(x, w, exps, out, 1, N, n_p, bk, gs, exp_cols,
-                         stream);
+                                     const void* exps, void* part, void* out,
+                                     int N, int n_p, int bk, int gs,
+                                     int exp_cols, int bm, int splits,
+                                     int k_split, void* stream) {
+  return launch_apsq(x, w, exps, part, out, 1, N, n_p, bk, gs, exp_cols, bm,
+                     splits, k_split, stream);
 }
 
 // bm, splits, k_split: the wrapper's plan (ops.baseline_plan).

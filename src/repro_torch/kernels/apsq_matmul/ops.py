@@ -18,13 +18,14 @@ from .. import _build
 from .._build import NUM_SMS
 from . import ref
 
-# Largest number of live INT8 bank codes per output element the kernel
-# keeps in registers (two packed 64-bit words).
+# Largest number of live INT8 bank codes per output element the expert
+# kernels keep in registers (two packed 64-bit words).
 MAX_BANKS = 16
 
-W8_BN = 64           # columns per block of the W8A8 tensor-core kernel
-W8_KS = 64           # K rows per warp slice of it
-W8_WARPS = 4         # warps per block of it
+W8_BN = 64           # columns per block of the tensor-core kernels
+W8_KS = 64           # K rows per warp slice of them
+W8_WARPS = 4         # warps per block of them
+M1_BM = 1            # the APSQ body at M == 1: 1 = one-row dp4a, 16 = mma
 
 
 class BaselinePlan(NamedTuple):
@@ -48,6 +49,33 @@ def baseline_plan(m: int, n: int, k: int) -> BaselinePlan:
     splits = max(1, int(3 * NUM_SMS / tiles + 0.5))
     k_split = max(1, math.ceil(k / splits / rnd)) * rnd
     return BaselinePlan(bm, max(1, math.ceil(k / k_split)), k_split)
+
+
+class ApsqPlan(NamedTuple):
+    """How the APSQ kernels cut [M, K] @ [K, N] into PSUM-tile partials:
+    ``bm`` rows per block (16 or 32 on the tensor cores; 1 is the one-row
+    body, M == 1 only), each tile's ``bk`` K rows in ``splits`` ranges
+    of ``k_split`` rows (a multiple of ``W8_WARPS * W8_KS``; the last
+    range shorter), never across a tile's end.  The partials go to a
+    [n_p * splits, M, N] int32 scratch, one slot per block, and a second
+    kernel (the epilogue) walks Algorithm 1 over them."""
+    bm: int
+    splits: int
+    k_split: int
+
+
+@functools.lru_cache(maxsize=256)
+def apsq_plan(m: int, n: int, k: int, n_p: int) -> ApsqPlan:
+    """A pure function of the shapes (``k`` before or after the ragged
+    pad): as ``baseline_plan``, each PSUM tile is split until about
+    three blocks per SM are busy, in whole rounds of K slices."""
+    bm = M1_BM if m == 1 else (16 if m <= 16 else 32)
+    bk = math.ceil(k / n_p)
+    blocks = math.ceil(n / W8_BN) * math.ceil(m / bm) * n_p
+    rnd = W8_WARPS * W8_KS
+    splits = max(1, int(3 * NUM_SMS / blocks + 0.5))
+    k_split = max(1, math.ceil(bk / splits / rnd)) * rnd
+    return ApsqPlan(bm, max(1, math.ceil(bk / k_split)), k_split)
 
 
 def _check_operands(x_codes, w_codes, *, experts: bool = False):
@@ -74,6 +102,8 @@ def apsq_matmul_int8(x_codes: torch.Tensor, w_codes: torch.Tensor,
     ``n_p`` is ``exps.shape[0]``; ``exps`` is [n_p] or [n_p, N].  M == 1
     takes the decode kernel (``apsq_matmul_m1``), any other M the
     generic one (``apsq_matmul``); both are bit-identical to ``ref``.
+    Either is one launch count: the tile partials and the Algorithm-1
+    epilogue are two kernels of one call (``apsq_plan``).
     """
     _check_operands(x_codes, w_codes)
     n_p = int(exps.shape[0])
@@ -83,9 +113,8 @@ def apsq_matmul_int8(x_codes: torch.Tensor, w_codes: torch.Tensor,
     if exps.dim() == 2 and tuple(exps.shape) != (n_p, n):
         raise ValueError(f"exps {tuple(exps.shape)} != [n_p, N]=({n_p}, {n})")
     gs_eff = min(int(gs), n_p)   # gs >= n_p is PSQ: one group over all tiles
-    if gs_eff < 1 or gs_eff > MAX_BANKS:
-        raise ValueError(f"gs={gs} (n_p={n_p}): the CUDA kernel keeps at "
-                         f"most {MAX_BANKS} bank codes")
+    if gs_eff < 1:
+        raise ValueError(f"gs={gs} must be >= 1")
     x_codes, w_codes = ref.pad_ragged_k(x_codes, w_codes, n_p)
     x = x_codes.contiguous()
     w = w_codes.contiguous()
@@ -94,17 +123,18 @@ def apsq_matmul_int8(x_codes: torch.Tensor, w_codes: torch.Tensor,
     out = torch.empty((m, n), dtype=torch.int32, device=x.device)
     if m == 0 or n == 0:
         return out
+    plan = apsq_plan(m, n, x.shape[1], n_p)
+    # one int32 partial per (PSUM tile, K range) and output element
+    part = torch.empty((n_p * plan.splits, m, n), dtype=torch.int32,
+                       device=x.device)
     stream = _build.stream_ptr(x.device)
-    if m == 1:
-        err = _build.entry("apsq_matmul_m1")(
-            x.data_ptr(), w.data_ptr(), e.data_ptr(), out.data_ptr(),
-            n, n_p, bk, gs_eff, int(e.dim() == 2), stream)
-        _build.check(err, "apsq_matmul_m1")
-    else:
-        err = _build.entry("apsq_matmul")(
-            x.data_ptr(), w.data_ptr(), e.data_ptr(), out.data_ptr(),
-            m, n, n_p, bk, gs_eff, int(e.dim() == 2), stream)
-        _build.check(err, "apsq_matmul")
+    ptrs = (x.data_ptr(), w.data_ptr(), e.data_ptr(), part.data_ptr(),
+            out.data_ptr())
+    name = "apsq_matmul_m1" if m == 1 else "apsq_matmul"
+    shape = (n,) if m == 1 else (m, n)
+    err = _build.entry(name)(*ptrs, *shape, n_p, bk, gs_eff,
+                             int(e.dim() == 2), *plan, stream)
+    _build.check(err, name)
     return out
 
 

@@ -7,9 +7,11 @@ machine without JAX:
 
     python -m pytest -q -m cuda --noconftest tests/test_torch_cuda.py
 
-* APSQ GEMMs (generic and m=1) and the W8A8 baseline: bit-exact; the
-  W8A8 tensor-core kernel over M, K, N (ragged, misaligned, extreme
-  codes at K=5632) too, and bit-identical on repeat.
+* APSQ GEMMs (generic and m=1) and the W8A8 baseline: bit-exact; both
+  tensor-core designs over M, K, N (TinyLlama's projections at M 1-128
+  for APSQ; ragged tiles, misaligned operands, extreme codes at
+  K=5632, APSQ shift counts past 31) too, bit-identical on repeat, one
+  launch count per call.
 * The fused MoE expert GEMMs (APSQ and W8A8, all experts in one
   launch): bit-exact over E, M (rows past M masked), ragged K, gs and
   both exponent layouts.
@@ -74,6 +76,127 @@ def test_apsq_and_baseline_kernels_bit_exact(cuda, m, k, n, n_p, gs, exps):
     assert _build.launch_counts[name] == before[name] + 1
     assert (_build.launch_counts["baseline_matmul"]
             == before["baseline_matmul"] + 1)
+
+
+def _apsq_bit_exact_once_and_again(x, w, e, gs):
+    """The APSQ kernel on card operands: bit-exact against the plain
+    version, bit-identical on a second launch, one count per call."""
+    n_p = int(e.shape[0])
+    name = "apsq_matmul_m1" if x.shape[0] == 1 else "apsq_matmul"
+    before = _build.launch_counts[name]
+    got = ops.apsq_matmul_int8(x, w, e, gs=gs)
+    again = ops.apsq_matmul_int8(x, w, e, gs=gs)
+    want = ref.apsq_matmul_ref(x, w, e, n_p=n_p, gs=gs)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert torch.equal(got, again)
+    assert _build.launch_counts[name] == before + 2
+
+
+def _serving_exps(x, w, n_p, gs):
+    """Per-column exponents around the calibrated ones, as chip_smoke's."""
+    base = ref.choose_exps(x, w, n_p=n_p, gs=gs)
+    n = w.shape[1]
+    return (base[:, None] + torch.arange(n, device=w.device)[None] % 3
+            ).to(torch.int32).contiguous()
+
+
+def _mix2_ffn4(k, n):
+    """(n_p, gs) of a TinyLlama projection under mix2_ffn4."""
+    return (4, 2) if k == 2048 and n != 5632 else (8, 4)
+
+
+APSQ_CASES = [  # (m, k, n, n_p, gs, exps): "cols" | "0..47" | [n_p] list
+    # TinyLlama's projections at decode (M = slots) and prefill-chunk
+    # (M = C) rows, and the 32-row block form
+    *[(m, k, n, *_mix2_ffn4(k, n), "cols")
+      for m in (1, 2, 4, 8, 16, 17, 32, 128)
+      for k, n in ((2048, 256), (2048, 2048), (2048, 5632), (5632, 2048))],
+    # ragged PSUM tiles
+    (8, 96, 64, 8, 2, "cols"),        # bk = 12
+    (1, 104, 72, 8, 3, "cols"),       # bk = 13
+    (3, 37, 9, 1, 1, "cols"),         # bk = 37, one tile
+    (17, 1100, 300, 8, 4, "cols"),    # bk = 138 after the ragged pad
+    (8, 384, 130, 8, 4, "cols"),      # bk = 48: 16-byte loads, not 32
+    (1, 2000, 2048, 8, 4, "cols"),    # bk = 250
+    (16, 2000, 5632, 8, 4, "cols"),
+    (8, 5600, 2048, 8, 8, "cols"),    # bk = 700, gs = n_p
+    (8, 2048, 256, 32, 20, "cols"),   # gs past the expert kernels' 16 banks
+    # shift counts past 31 (and negative) at a serving shape
+    *[(m, 2048, 2048, 4, 2, e) for m in (1, 8)
+      for e in ([31, 32, 40, 0], [-1, 3, -2, 5], [33, 1, 40, 2], "0..47")],
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n,n_p,gs,exps", APSQ_CASES)
+def test_apsq_kernels_bit_exact_and_repeatable(cuda, m, k, n, n_p, gs,
+                                               exps):
+    g = torch.Generator(device=cuda).manual_seed(m * 17 + k + n + n_p)
+    x = torch.randint(-128, 128, (m, k), generator=g, device=cuda,
+                      dtype=torch.int8)
+    w = torch.randint(-128, 128, (k, n), generator=g, device=cuda,
+                      dtype=torch.int8)
+    if exps == "cols":
+        e = _serving_exps(x, w, n_p, gs)
+    elif exps == "0..47":     # per column, every count 0 .. 47
+        e = (torch.arange(n_p * n, device=cuda).view(n_p, n) % 48
+             ).to(torch.int32)
+    else:
+        e = torch.tensor(exps, dtype=torch.int32, device=cuda)
+    _apsq_bit_exact_once_and_again(x, w, e, gs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n,bm", [
+    (1, 5632, 2048, 1), (1, 5632, 2048, 16), (1, 104, 72, 1),
+    (1, 104, 72, 16), (1, 2048, 256, 16), (1, 2048, 256, 1)])
+def test_apsq_m1_both_partial_bodies(cuda, monkeypatch, m, k, n, bm):
+    """At M = 1 the one-row dp4a body and the tensor-core body, whatever
+    the plan picks."""
+    planned = ops.apsq_plan
+    monkeypatch.setattr(ops, "apsq_plan",
+                        lambda *a: planned(*a)._replace(bm=bm))
+    g = torch.Generator(device=cuda).manual_seed(m + k + n + bm)
+    x = torch.randint(-128, 128, (m, k), generator=g, device=cuda,
+                      dtype=torch.int8)
+    w = torch.randint(-128, 128, (k, n), generator=g, device=cuda,
+                      dtype=torch.int8)
+    _apsq_bit_exact_once_and_again(x, w, _serving_exps(x, w, 8, 4), 4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("xv,wv", [(-128, -128), (127, 127), (-128, 127)])
+@pytest.mark.parametrize("m,layout", [(1, "vec"), (8, "cols"), (16, "vec")])
+def test_apsq_kernels_extreme_codes_at_k5632(cuda, xv, wv, m, layout):
+    """Each tile's partial sums 704 products of magnitude up to 2^14
+    (|partial| up to 1.15e7): codes at or near the clip bounds."""
+    k, n, n_p, gs = 5632, 2048, 8, 4
+    x = torch.full((m, k), xv, dtype=torch.int8, device=cuda)
+    w = torch.full((k, n), wv, dtype=torch.int8, device=cuda)
+    w[:, 1::2] = -w[:, 1::2].clamp(min=-127)
+    e = ref.choose_exps(x, w, n_p=n_p, gs=gs)
+    if layout == "cols":
+        e = _serving_exps(x, w, n_p, gs)
+    _apsq_bit_exact_once_and_again(x, w, e, gs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(1, 5632, 2048), (8, 2048, 5632),
+                                   (16, 2048, 2048), (3, 100, 40)])
+def test_apsq_kernels_4_byte_aligned_operands(cuda, m, k, n):
+    """Operands 4-byte but not 16-byte aligned take the byte loads."""
+    n_p, gs = 8, 4
+    g = torch.Generator(device=cuda).manual_seed(m * k + n)
+    views = []
+    for shape in ((m, k), (k, n)):
+        buf = torch.randint(-128, 128, (shape[0] * shape[1] + 16,),
+                            generator=g, device=cuda, dtype=torch.int8)
+        off = (4 - buf.data_ptr()) % 16
+        views.append(buf[off:off + shape[0] * shape[1]].view(shape))
+    x, w = views
+    assert x.data_ptr() % 16 == 4 and w.data_ptr() % 16 == 4
+    _apsq_bit_exact_once_and_again(x, w, _serving_exps(x, w, n_p, gs), gs)
 
 
 EXPERT_CASES = [  # (e, m, k, n, n_p, gs, layout)

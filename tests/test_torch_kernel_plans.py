@@ -3,11 +3,11 @@
 The kernels themselves run only on the card (``test_torch_cuda.py``).
 Here, without a card:
 
-* The wrappers' plans (``attention_plan``, ``baseline_plan``) are pure
-  functions of the shapes that cover every cache position / K row
-  exactly once and fill the card where the shapes allow (for attention:
-  where S holds splits of ``MIN_SPLIT_TILES`` tiles, the shortest that
-  pays for the merge).
+* The wrappers' plans (``attention_plan``, ``baseline_plan``,
+  ``apsq_plan``) are pure functions of the shapes that cover every cache
+  position / K row exactly once and fill the card where the shapes allow
+  (for attention: where S holds splits of ``MIN_SPLIT_TILES`` tiles, the
+  shortest that pays for the merge).
 * The split-S attention, emulated in plain torch the way the kernel cuts
   it (row blocks, splits, the walk that stops at a block's last limit,
   partial (m, l, acc) merged by log-sum-exp), matches
@@ -22,6 +22,16 @@ Here, without a card:
   permutation fed to ``mma.m16n8k32`` with PTX's fragment layouts, the
   column mapping, the in-block fold and split-K) emulated in numpy is
   bit-exact against an integer matmul, ragged M, N and K included.
+* The APSQ kernels' dataflow (``ops.apsq_plan``'s tile-aligned K slots,
+  the tensor-core and one-row partial bodies, the partials stored as
+  int32, the Algorithm-1 epilogue with its running sum of dequantized
+  codes and XLA shifts) emulated in numpy is bit-exact against the
+  torch oracle and the JAX reference, over
+  ``test_torch_kernels.GEMM_CASES`` and more (ragged K with bk = 12, 13,
+  37, 138, gs 1-17, n_p = 1, gs = n_p, both exponent layouts,
+  adversarial exponents, three K ranges per tile) and M in {1, 8, 16,
+  17, 32, 128}; the APSQ plan covers every K row of every PSUM tile
+  once, no slot crossing a tile's end.
 * ``baseline_matmul_ref`` is bit-exact against JAX's at K=5632 with
   extreme codes.
 """
@@ -39,6 +49,7 @@ from repro_torch.kernels.apsq_matmul import ops as gops
 from repro_torch.kernels.apsq_matmul import ref as gref
 from repro_torch.kernels.int8_kv_attention import ops as kops
 from repro_torch.kernels.int8_kv_attention import ref as kref
+from test_torch_kernels import GEMM_CASES, _exps
 
 KERNELS = Path(kops.__file__).resolve().parents[1]
 
@@ -335,65 +346,134 @@ def mma_m16n8k32(acc, a_regs, b_regs):
     return acc + D[C_RC[..., 0], C_RC[..., 1]]
 
 
-def emulate_w8a8_kernel(x, w, plan):
-    """w8a8_mma_kernel, lane by lane (lanes vectorised), on int8 numpy
-    operands; returns the int32 output."""
-    sel = _selectors("apsq_matmul/csrc/apsq_matmul.cu")
+def _masked(x, w, kb, ke, pad):
+    """What the kernels' loads return inside K range [kb, ke): the
+    operands, zeros outside the range and past M or N (``pad`` rows)."""
     M, K = x.shape
     N = w.shape[1]
-    bm, mt_n = plan.bm, plan.bm // 16
-    out = np.zeros((M, N), np.int64)
-    for kb, ke in k_ranges(plan, K):
-        # what the loads return: zeros at k >= ke and past M or N
-        xz = np.zeros((M + bm + 8, K + 64), np.int8)
-        xz[:M, kb:ke] = x[:, kb:ke]
-        wz = np.zeros((K + 64, N + 64), np.int8)
-        wz[kb:ke, :N] = w[kb:ke]
+    xz = np.zeros((M + pad, K + 64), np.int8)
+    xz[:M, kb:ke] = x[:, kb:ke]
+    wz = np.zeros((K + 64, N + 64), np.int8)
+    wz[kb:ke, :N] = w[kb:ke]
+    return xz, wz
+
+
+def _lane_loads(xz, wz, kr, col, rows):
+    """A lane's operands for one K slice: 16 weight rows x 8 columns as
+    the low/high words of its uint2 loads, and for each activation row in
+    ``rows`` ([32 lanes] each) its 16 K bytes as 4 words."""
+    wr = [np.stack([wz[kr + i, col + j] for j in range(8)], -1)
+          for i in range(16)]                        # [32 lanes, 8]
+    wlo = [_words(r[:, :4].copy()) for r in wr]
+    whi = [_words(r[:, 4:].copy()) for r in wr]
+    xr = [_words(np.stack([xz[m, kr + j] for j in range(16)], -1)
+                 .reshape(32, 4, 4)) for m in rows]
+    return wlo, whi, xr
+
+
+def emulate_mma_partial(xz, wz, m0, n0, kb, ke, bm, sel):
+    """``mma_partial``, lane by lane (lanes vectorised): the block's int64
+    tile [bm, 64] of its K range, on operands masked to it."""
+    mt_n = bm // 16
+    tile = np.zeros((bm, gops.W8_BN), np.int64)
+    for warp in range(gops.W8_WARPS):
+        acc = np.zeros((mt_n, 8, 32, 4), np.int64)
+        for k0 in range(kb + warp * gops.W8_KS, ke,
+                        gops.W8_WARPS * gops.W8_KS):
+            kr = k0 + 16 * TIG                       # the lane's K rows
+            rows = [m0 + 16 * mt + GRP + 8 * hh
+                    for mt in range(mt_n) for hh in range(2)]
+            wlo, whi, xr = _lane_loads(xz, wz, kr, n0 + 8 * GRP, rows)
+            for s in range(2):
+                b = []
+                for hh in range(2):
+                    i = 8 * s + 4 * hh
+                    b.append(transpose4x4(wlo[i:i + 4], sel)
+                             + transpose4x4(whi[i:i + 4], sel))
+                for mt in range(mt_n):
+                    lo, hi = xr[2 * mt], xr[2 * mt + 1]
+                    a = np.stack([lo[:, 2 * s], hi[:, 2 * s],
+                                  lo[:, 2 * s + 1], hi[:, 2 * s + 1]], -1)
+                    for q in range(8):
+                        acc[mt, q] = mma_m16n8k32(
+                            acc[mt, q], a, np.stack([b[0][q], b[1][q]], -1))
+        # the fold: accumulator c of n8 tile q sits at row g + 8*(c//2),
+        # column 16t + 8*(c%2) + q
+        for mt in range(mt_n):
+            for q in range(8):
+                for c in range(4):
+                    np.add.at(tile, (16 * mt + GRP + 8 * (c // 2),
+                                     16 * TIG + 8 * (c % 2) + q),
+                              acc[mt, q, :, c])
+    return tile
+
+
+def dp4a(a, b, c):
+    """CUDA ``__dp4a`` (signed): c + the 4 byte products of a and b."""
+    return c + (_bytes(a).astype(np.int64) * _bytes(b)).sum(-1)
+
+
+def emulate_dp4a_partial(xz, wz, n0, kb, ke, sel):
+    """``apsq_partial_dp4a_kernel`` for one block: its [64] int64 sums of
+    row 0 over its K range, lane by lane, then the shuffles over the 4
+    lanes of a column group and the warps' sum."""
+    red = np.zeros((gops.W8_WARPS, gops.W8_BN), np.int64)
+    for warp in range(gops.W8_WARPS):
+        acc = np.zeros((8, 32), np.int64)
+        for k0 in range(kb + warp * gops.W8_KS, ke,
+                        gops.W8_WARPS * gops.W8_KS):
+            kr = k0 + 16 * TIG
+            wlo, whi, (xr,) = _lane_loads(xz, wz, kr, n0 + 8 * GRP,
+                                          [np.zeros(32, np.int64)])
+            for hh in range(4):
+                i = 4 * hh
+                b = transpose4x4(wlo[i:i + 4], sel) + \
+                    transpose4x4(whi[i:i + 4], sel)
+                for q in range(8):
+                    acc[q] = dp4a(b[q], xr[:, hh], acc[q])
+        for q in range(8):                           # __shfl_xor 1, then 2
+            acc[q] = acc[q] + acc[q][LANE ^ 1]
+            acc[q] = acc[q] + acc[q][LANE ^ 2]
+        for q in range(8):
+            red[warp, 8 * GRP[TIG == 0] + q] = acc[q][TIG == 0]
+    return red.sum(0)
+
+
+def range_partials(x, w, ranges, bm):
+    """The int64 [M, N] partial of each K range in ``ranges``, as the
+    blocks of the tensor-core kernels (bm 16 or 32) or of the one-row
+    body (bm 1) compute it."""
+    sel = _selectors("apsq_matmul/csrc/apsq_matmul.cu")
+    M = x.shape[0]
+    N = w.shape[1]
+    out = []
+    for kb, ke in ranges:
+        xz, wz = _masked(x, w, kb, ke, max(bm, 16) + 8)
+        part = np.zeros((M, N), np.int64)
         for m0 in range(0, M, bm):
             for n0 in range(0, N, gops.W8_BN):
-                tile = np.zeros((bm, gops.W8_BN), np.int64)
-                for warp in range(gops.W8_WARPS):
-                    acc = np.zeros((mt_n, 8, 32, 4), np.int64)
-                    for k0 in range(kb + warp * gops.W8_KS, ke,
-                                    gops.W8_WARPS * gops.W8_KS):
-                        kr = k0 + 16 * TIG           # the lane's K rows
-                        col = n0 + 8 * GRP           # its 8 columns
-                        wr = [np.stack([wz[kr + i, col + j]
-                                        for j in range(8)], -1)
-                              for i in range(16)]    # [32 lanes, 8]
-                        wlo = [_words(r[:, :4].copy()) for r in wr]
-                        whi = [_words(r[:, 4:].copy()) for r in wr]
-                        xr = [[_words(np.stack(
-                            [xz[m0 + 16 * mt + GRP + 8 * hh, kr + j]
-                             for j in range(16)], -1).reshape(32, 4, 4))
-                            for hh in range(2)] for mt in range(mt_n)]
-                        for s in range(2):
-                            b = []
-                            for hh in range(2):
-                                i = 8 * s + 4 * hh
-                                b.append(transpose4x4(wlo[i:i + 4], sel)
-                                         + transpose4x4(whi[i:i + 4], sel))
-                            for mt in range(mt_n):
-                                lo, hi = xr[mt]
-                                a = np.stack([lo[:, 2 * s], hi[:, 2 * s],
-                                              lo[:, 2 * s + 1],
-                                              hi[:, 2 * s + 1]], -1)
-                                for q in range(8):
-                                    acc[mt, q] = mma_m16n8k32(
-                                        acc[mt, q], a,
-                                        np.stack([b[0][q], b[1][q]], -1))
-                    # the fold: accumulator c of n8 tile q sits at row
-                    # g + 8*(c//2), column 16t + 8*(c%2) + q
-                    for mt in range(mt_n):
-                        for q in range(8):
-                            for c in range(4):
-                                np.add.at(tile, (16 * mt + GRP + 8 * (c // 2),
-                                                 16 * TIG + 8 * (c % 2) + q),
-                                          acc[mt, q, :, c])
-                rows = min(bm, M - m0)
                 cols = min(gops.W8_BN, N - n0)
-                out[m0:m0 + rows, n0:n0 + cols] += tile[:rows, :cols]
-    return ((out + 2**31) % 2**32 - 2**31).astype(np.int32)
+                if bm == 1:
+                    part[0, n0:n0 + cols] = emulate_dp4a_partial(
+                        xz, wz, n0, kb, ke, sel)[:cols]
+                    continue
+                rows = min(bm, M - m0)
+                part[m0:m0 + rows, n0:n0 + cols] = emulate_mma_partial(
+                    xz, wz, m0, n0, kb, ke, bm, sel)[:rows, :cols]
+        out.append(part)
+    return out
+
+
+def _wrap(v):
+    """int64 -> int32 bits, mod 2^32."""
+    return ((np.asarray(v, np.int64) + 2**31) % 2**32 - 2**31)
+
+
+def emulate_w8a8_kernel(x, w, plan):
+    """w8a8_mma_kernel on int8 numpy operands: the blocks' partials over
+    the plan's K ranges, added into the output; returns int32."""
+    parts = range_partials(x, w, k_ranges(plan, x.shape[1]), plan.bm)
+    return _wrap(sum(parts)).astype(np.int32)
 
 
 @pytest.mark.parametrize("M,N,K", [
@@ -412,6 +492,156 @@ def test_w8a8_kernel_dataflow_emulation_bit_exact(M, N, K):
     np.testing.assert_array_equal(got, want.astype(np.int32))
     np.testing.assert_array_equal(got, gref.baseline_matmul_ref(
         torch.from_numpy(x), torch.from_numpy(w)).numpy())
+
+
+# ---------------------------------------------------------------------------
+# The APSQ kernels' dataflow, emulated: tile partials, then Algorithm 1
+# ---------------------------------------------------------------------------
+
+def tile_slots(plan, n_p, bk):
+    """(begin, end) K range of each partial slot z, as ``tile_range``
+    reads the plan: PSUM tile z // splits, range z % splits of it."""
+    out = []
+    for z in range(n_p * plan.splits):
+        i, s = divmod(z, plan.splits)
+        kb = i * bk + s * plan.k_split
+        out.append((kb, min(i * bk + bk, kb + plan.k_split)))
+    return out
+
+
+def _shl(a, s):
+    """XLA ShiftLeft on int32 values held in int64: 0 outside [0, 32)."""
+    ok = (s >= 0) & (s < 32)
+    v = (np.asarray(a, np.int64) % 2**32) << np.where(ok, s, 0)
+    return np.where(ok, _wrap(v), 0)
+
+
+def _sra(a, s):
+    """XLA ShiftRightArithmetic: the sign outside [0, 32)."""
+    return np.asarray(a, np.int64) >> np.where((s >= 0) & (s < 32), s, 31)
+
+
+def _quant(v, e):
+    r = np.where(e > 0, _sra(_wrap(v + _shl(1, e - 1)), e), v)
+    return np.clip(r, -128, 127)
+
+
+def emulate_epilogue(parts, exps, n_p, splits, gs):
+    """``apsq_epilogue_kernel`` over the int32 slots ``parts``
+    [n_p * splits] x [M, N], every element at once: tile i sums its slots
+    mod 2^32, then the Algorithm-1 step, each group's codes dequantized
+    into one running sum (``carry``) as they are made."""
+    exps = np.asarray(exps, np.int64)
+    exp_at = (lambda i: exps[i]) if exps.ndim == 1 else \
+        (lambda i: exps[i][None, :])
+    carry = result = np.zeros(parts[0].shape, np.int64)
+    last = n_p - 1
+    for i in range(n_p):
+        p = _wrap(sum(parts[i * splits + s] for s in range(splits)))
+        e = exp_at(i)
+        if i % gs == 0:                               # group start: APSQ
+            carry = result = _shl(_quant(_wrap(p + carry), e), e)
+        elif i < last:                                # tail tile: PSQ
+            carry = _wrap(carry + _shl(_quant(p, e), e))
+        else:                                 # final tile closes mid-group
+            result = _shl(_quant(_wrap(p + carry), e), e)
+    return result.astype(np.int32)
+
+
+def emulate_apsq_kernel(x, w, exps, gs, plan=None):
+    """``apsq_matmul_int8`` on the card, in numpy: the wrapper's ragged-K
+    pad, the plan's tile-aligned K slots (tensor-core or one-row body),
+    the partials stored as int32, then the epilogue."""
+    exps = np.asarray(exps)
+    n_p = exps.shape[0]
+    pad = (-x.shape[1]) % n_p
+    x = np.pad(x, ((0, 0), (0, pad)))
+    w = np.pad(w, ((0, pad), (0, 0)))
+    (M, K), N = x.shape, w.shape[1]
+    bk = K // n_p
+    plan = plan or gops.apsq_plan(M, N, K, n_p)
+    parts = [_wrap(p) for p in range_partials(
+        x, w, tile_slots(plan, n_p, bk), plan.bm)]
+    return emulate_epilogue(parts, exps, n_p, plan.splits, min(gs, n_p))
+
+
+APSQ_PLAN_SHAPES = [  # (M, N, K, n_p): serving shapes, then ragged tiles
+    (1, 2048, 5632, 8), (1, 5632, 2048, 8), (1, 2048, 2048, 4),
+    (1, 256, 2048, 4), (2, 2048, 2048, 4), (4, 5632, 2048, 8),
+    (8, 2048, 2048, 4), (8, 256, 2048, 4), (8, 5632, 2048, 8),
+    (8, 2048, 5632, 8), (16, 5632, 2048, 8), (16, 2048, 5632, 8),
+    (17, 2048, 2048, 4), (32, 5632, 2048, 8), (128, 2048, 2048, 4),
+    (6, 16, 48, 4), (3, 9, 39, 3), (5, 40, 148, 4), (17, 300, 1104, 8),
+    (8, 64, 1100, 2), (1, 48, 45, 1), (8, 2048, 0, 4),
+]
+
+
+@pytest.mark.parametrize("M,N,K,n_p", APSQ_PLAN_SHAPES)
+def test_apsq_plan_covers_every_tile_row_once(M, N, K, n_p):
+    plan = gops.apsq_plan(M, N, K, n_p)
+    assert plan == gops.apsq_plan(M, N, K, n_p)            # deterministic
+    assert plan.bm == (gops.M1_BM if M == 1 else 16 if M <= 16 else 32)
+    rnd = gops.W8_WARPS * gops.W8_KS
+    assert plan.k_split % rnd == 0 and plan.splits >= 1
+    bk = math.ceil(K / n_p)
+    seen = np.zeros(n_p * bk, np.int64)
+    for z, (kb, ke) in enumerate(tile_slots(plan, n_p, bk)):
+        tile = z // plan.splits
+        assert kb < ke or bk == 0                          # no empty split
+        assert tile * bk <= kb and ke <= (tile + 1) * bk   # inside its tile
+        # every warp slice of the block stays inside the tile too
+        for k0 in range(kb, ke, gops.W8_KS):
+            assert min(k0 + gops.W8_KS, ke) <= (tile + 1) * bk
+        seen[kb:ke] += 1
+    assert (seen == 1).all()
+    blocks = math.ceil(N / gops.W8_BN) * math.ceil(M / plan.bm) * n_p
+    if blocks * (bk // rnd) >= 3 * gops.NUM_SMS:
+        assert blocks * plan.splits >= gops.NUM_SMS        # the card is full
+    if blocks >= 3 * gops.NUM_SMS:
+        assert plan.splits == 1
+
+
+def _apsq_case(m, k, n, n_p, gs, exps, seed):
+    rng = np.random.default_rng(seed)
+    x = rng.integers(-128, 128, (m, k)).astype(np.int8)
+    w = rng.integers(-128, 128, (k, n)).astype(np.int8)
+    return x, w, _exps(exps, x, w, n_p, gs, n)
+
+
+def _check_apsq_emulation(x, w, e, gs, plan=None):
+    n_p = e.shape[0]
+    got = emulate_apsq_kernel(x, w, e, gs, plan)
+    want = gref.apsq_matmul_ref(torch.from_numpy(x), torch.from_numpy(w),
+                                torch.from_numpy(e), n_p=n_p, gs=gs)
+    np.testing.assert_array_equal(got, want.numpy())
+    np.testing.assert_array_equal(got, np.asarray(jref.apsq_matmul_ref(
+        jnp.asarray(x), jnp.asarray(w), jnp.asarray(e), n_p=n_p, gs=gs)))
+
+
+APSQ_EMU_CASES = GEMM_CASES + [
+    (5, 148, 40, 4, 2, "cols"),          # bk = 37
+    (17, 1100, 300, 8, 4, "cols"),       # bk = 138
+    (8, 1100, 64, 2, 1, "auto"),         # 3 K ranges per tile
+    (4, 64, 16, 4, 2, [33, 1, 40, 2]),   # shift counts >= 32
+    (3, 480, 24, 24, 17, "cols"),        # gs past the expert kernels' 16
+]
+
+
+@pytest.mark.parametrize("m,k,n,n_p,gs,exps", APSQ_EMU_CASES)
+def test_apsq_kernel_dataflow_emulation_bit_exact(m, k, n, n_p, gs, exps):
+    x, w, e = _apsq_case(m, k, n, n_p, gs, exps, 4000 + m * 7 + k + n + gs)
+    _check_apsq_emulation(x, w, e, gs)
+    if m == 1:                              # the other M == 1 body too
+        plan = gops.apsq_plan(m, n, k, n_p)
+        _check_apsq_emulation(x, w, e, gs, plan._replace(
+            bm=16 if plan.bm == 1 else 1))
+
+
+@pytest.mark.parametrize("m", [1, 8, 16, 17, 32, 128])
+@pytest.mark.parametrize("k,n,n_p,gs", [(300, 72, 4, 2), (600, 24, 8, 3)])
+def test_apsq_kernel_emulation_over_m_bit_exact(m, k, n, n_p, gs):
+    x, w, e = _apsq_case(m, k, n, n_p, gs, "cols", 5000 + m + k + n)
+    _check_apsq_emulation(x, w, e, gs)
 
 
 # ---------------------------------------------------------------------------
