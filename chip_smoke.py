@@ -20,9 +20,13 @@ Phases (each exits non-zero on failure):
              bit-exact at M in {1, 8, 16} and at M in
              {17, 32, 33} (beside torch._int_mm), at ragged shapes and
              with extreme codes at K=5632; the fused expert GEMMs (APSQ
-             and W8A8) bit-exact at E=64, M in {1, 2, 3, 16}, (K, N) in
-             {(2048, 1024), (1024, 2048)}, exponents [E, n_p] and
-             [E, n_p, N]; INT8-KV attention (hd=64, Hq=32, Hkv=4 and
+             and W8A8) bit-exact and bit-identical on repeat at E=64, M
+             in {1, 2, 3, 16}, (K, N) in {(2048, 1024), (1024, 2048)},
+             exponents [E, n_p] and [E, n_p, N], and at 8-slot decode
+             routing (``routed``: 8 tokens' seeded top-8 choices through
+             the MoE dispatch at capacity 2, the experts no token chose
+             all zero; its bound counts the live experts' weights);
+             INT8-KV attention (hd=64, Hq=32, Hkv=4 and
              hd=128, Hq=Hkv=16; decode and prefill-chunk forms, the
              serving shapes, decode over 1024 and 4096 positions, a chunk
              whose first rows see nothing) within rtol 2e-5 / atol 2e-6,
@@ -430,9 +434,94 @@ def gemm_checks(torch, records: dict) -> list:
     return rows, errors
 
 
+def expert_rec(torch, ops, ref, x, w, exps, gs, errors: list,
+               label: str) -> dict:
+    """One expert kernel on x @ w (APSQ where ``exps`` is given, else
+    W8A8): bit-exact against its plain version and against a second
+    call, device and eager ms beside the plain version's, and the bound
+    over the weight bytes of the experts that have a nonzero activation
+    row (``live_experts``: the kernel reads no other weights)."""
+    E, m, k = x.shape
+    n = w.shape[2]
+    if exps is None:
+        call = lambda i: ops.baseline_expert_matmul_int8(x, w)
+        plain = lambda i: ref.baseline_expert_matmul_ref(x, w)
+    else:
+        call = lambda i: ops.apsq_expert_matmul_int8(x, w, exps, gs=gs)
+        plain = lambda i: ref.apsq_expert_matmul_ref(x, w, exps, gs=gs)
+    got, again, want = call(0), call(0), plain(0)
+    torch.cuda.synchronize()
+    err = int((got.long() - want.long()).abs().max())
+    repeat = bool(torch.equal(got, again))
+    del got, again, want
+    if err or not repeat:
+        errors.append(f"{label}: max|err|={err}, repeat equal={repeat}")
+    live = int((x != 0).flatten(1).any(1).sum())
+    t_k, e_k = both_ms(torch, call, 1)
+    t_p, _ = both_ms(torch, plain, 1, iters=5)
+    byts = live * k * n + E * m * k + 4 * E * m * n
+    if exps is not None:
+        byts += exps.numel() * 4
+    b_ms, b_by = bound(byts, 2.0 * live * m * k * n, INT8_OPS_PER_S)
+    return {"ms": t_k, "eager_ms": e_k, "plain_ms": t_p, "bound_ms": b_ms,
+            "bound_by": b_by, "bound_over": f"weights of {live} live "
+            f"experts of {E}", "live_experts": live, "max_abs_err": err,
+            "repeat_equal": repeat, "library_ms": None,
+            "library": NO_BATCHED_INT8_MM,
+            "plan": list(ops.expert_plan(E, m, n, k, exps.shape[1]
+                                         if exps is not None else 1))}
+
+
+EXPERT_PLANS = ((64, 4), (128, 4))    # (columns per block, stages)
+
+
+def expert_plans_ms(torch, ops, ref, x, w, exps, gs, errors: list) -> dict:
+    """Device ms of both expert kernels at each (columns per block,
+    stages) the plan can pick, whatever ``ops.expert_plan`` picks here;
+    each result is held bit-exact as the planned one is."""
+    planned, out = ops.expert_plan, {}
+    want = ref.apsq_expert_matmul_ref(x, w, exps, gs=gs)
+    want_b = ref.baseline_expert_matmul_ref(x, w)
+    for bn, stages in EXPERT_PLANS:
+        ops.expert_plan = lambda *a, bn=bn, stages=stages: planned(
+            *a)._replace(bn=bn, stages=stages)
+        try:
+            apsq = lambda i: ops.apsq_expert_matmul_int8(x, w, exps, gs=gs)
+            base = lambda i: ops.baseline_expert_matmul_int8(x, w)
+            ok = torch.equal(apsq(0), want) and torch.equal(base(0), want_b)
+            if not ok:
+                errors.append(f"expert kernels disagree at bn={bn} "
+                              f"stages={stages}")
+            out[f"bn={bn} stages={stages}"] = {
+                "apsq": both_ms(torch, apsq, 1)[0],
+                "baseline": both_ms(torch, base, 1)[0]}
+        finally:
+            ops.expert_plan = planned
+    return out
+
+
+def routed_codes(torch, gen, dev, E, k, *, tokens=8, top_k=8, cap=2):
+    """Activation codes [E, cap, k] as OLMoE's dispatch leaves them at
+    8-slot decode: ``tokens`` tokens' seeded top-``top_k`` choices through
+    ``models.moe._dispatch`` at capacity ``cap``, random codes in the
+    rows where an entry landed and zeros elsewhere."""
+    from repro_torch.models.moe import _dispatch
+    g = torch.Generator().manual_seed(17)
+    topi = torch.stack([torch.randperm(E, generator=g)[:top_k]
+                        for _ in range(tokens)]).to(dev)
+    order, slot, keep = _dispatch(topi, E, cap)
+    codes = torch.randint(-128, 128, (tokens, k), generator=gen, device=dev,
+                          dtype=torch.int8)
+    buf = torch.zeros((E * cap + 1, k), dtype=torch.int8, device=dev)
+    buf[slot] = torch.where(keep[:, None], codes[order // top_k], 0)
+    return buf[:-1].reshape(E, cap, k)
+
+
 def expert_checks(torch, records: dict) -> list:
     """The fused expert GEMMs at OLMoE's shapes (E=64 experts; M is the
-    capacity: 2 at 8-slot decode, 3 at a 16-token prefill chunk)."""
+    capacity: 2 at 8-slot decode, 3 at a 16-token prefill chunk), every
+    expert live, and at 8-slot decode routing (``routed``: the experts no
+    token chose have zero rows)."""
     from repro_torch.kernels.apsq_matmul import ops, ref
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(2)
@@ -442,62 +531,45 @@ def expert_checks(torch, records: dict) -> list:
         # one bank is 134 MB, past the 50 MB L2: no copies need rotating
         w = torch.randint(-128, 128, (E, k, n), generator=gen, device=dev,
                           dtype=torch.int8)
-        for m in (1, 2, 3, 16):
-            x = torch.randint(-128, 128, (E, m, k), generator=gen,
-                              device=dev, dtype=torch.int8)
-            want_b = ref.baseline_expert_matmul_ref(x, w)
-            got_b = ops.baseline_expert_matmul_int8(x, w)
-            torch.cuda.synchronize()
-            err_b = int((got_b.long() - want_b.long()).abs().max())
-            del want_b, got_b
-            t_kb, e_kb = both_ms(torch, lambda i: ops.
-                                 baseline_expert_matmul_int8(x, w), 1)
-            t_pb, _ = both_ms(torch, lambda i: ref.
-                              baseline_expert_matmul_ref(x, w), 1, iters=5)
-            byts = E * k * n + E * m * k + 4 * E * m * n
-            bb_ms, bb_by = bound(byts, 2.0 * E * m * k * n, INT8_OPS_PER_S)
+        for m in (1, 2, 3, 16, "routed"):
+            if m == "routed":
+                if (k, n) != (2048, 1024):
+                    continue
+                x = routed_codes(torch, gen, dev, E, k)
+            else:
+                x = torch.randint(-128, 128, (E, m, k), generator=gen,
+                                  device=dev, dtype=torch.int8)
+            shape_s = f"E={E} M={x.shape[1]} K={k} N={n}"
             row = {"E": E, "M": m, "K": k, "N": n, "n_p": n_p, "gs": gs,
-                   "baseline_expert_matmul": {
-                       "ms": t_kb, "eager_ms": e_kb, "plain_ms": t_pb,
-                       "bound_ms": bb_ms, "bound_by": bb_by,
-                       "max_abs_err": err_b, "library_ms": None,
-                       "library": NO_BATCHED_INT8_MM}}
-            if err_b:
-                errors.append(f"expert baseline E={E} M={m} K={k} N={n}: "
-                              f"max|err|={err_b}")
+                   "baseline_expert_matmul": expert_rec(
+                       torch, ops, ref, x, w, None, 1, errors,
+                       f"expert baseline {shape_s}")}
             for layout in ("vec", "cols"):
                 shape = (E, n_p) if layout == "vec" else (E, n_p, n)
                 exps = torch.randint(0, 14, shape, generator=gen,
                                      device=dev, dtype=torch.int32)
-                got = ops.apsq_expert_matmul_int8(x, w, exps, gs=gs)
-                want = ref.apsq_expert_matmul_ref(x, w, exps, gs=gs)
-                torch.cuda.synchronize()
-                err = int((got.long() - want.long()).abs().max())
-                del got, want
-                if err:
-                    errors.append(f"expert APSQ E={E} M={m} K={k} N={n} "
-                                  f"exps {layout}: max|err|={err}")
-                t_k, e_k = both_ms(torch, lambda i: ops.
-                                   apsq_expert_matmul_int8(x, w, exps,
-                                                           gs=gs), 1)
-                t_p, _ = both_ms(torch, lambda i: ref.apsq_expert_matmul_ref(
-                    x, w, exps, gs=gs), 1, iters=5)
-                b_ms, b_by = bound(byts + exps.numel() * 4,
-                                   2.0 * E * m * k * n, INT8_OPS_PER_S)
-                row[f"apsq_expert_matmul_{layout}"] = {
-                    "ms": t_k, "eager_ms": e_k, "plain_ms": t_p,
-                    "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err,
-                    "library_ms": None, "library": NO_BATCHED_INT8_MM}
+                row[f"apsq_expert_matmul_{layout}"] = expert_rec(
+                    torch, ops, ref, x, w, exps, gs, errors,
+                    f"expert APSQ {shape_s} exps {layout}")
             rows.append(row)
             # the record of each kernel is its main-path decode shape:
             # per-column exponents (per-channel weights), 8 slots -> M=2
             if (m, k, n) == (2, 2048, 1024):
-                shape_s = f"E={E} M={m} K={k} N={n}"
                 records["apsq_expert_matmul"] = dict(
                     row["apsq_expert_matmul_cols"],
-                    shape=f"{shape_s} n_p={n_p} gs={gs} exps [E,n_p,N]")
+                    shape=f"{shape_s} n_p={n_p} gs={gs} exps [E,n_p,N]",
+                    plans_ms=expert_plans_ms(torch, ops, ref, x, w, exps,
+                                             gs, errors))
                 records["baseline_expert_matmul"] = dict(
                     row["baseline_expert_matmul"], shape=shape_s)
+            if m == "routed":
+                for name, key in (("apsq_expert_matmul",
+                                   "apsq_expert_matmul_cols"),
+                                  ("baseline_expert_matmul",
+                                   "baseline_expert_matmul")):
+                    records[name]["at_routed"] = dict(
+                        row[key], shape=f"{shape_s}, 8 tokens' top-8 "
+                        f"choices at capacity 2")
         del w
     return rows, errors
 
@@ -732,6 +804,12 @@ def profile_summary(prof, wall_s: float) -> dict:
                     for k, us, n in rows[:15]]}
 
 
+def tokens_digest(done) -> str:
+    """sha256 of finished requests' greedy tokens, by request id."""
+    return hashlib.sha256(json.dumps(
+        sorted((r.uid, r.out) for r in done)).encode()).hexdigest()
+
+
 def serve_all(torch, _build, dev, eng, reqs, profile: bool,
               info: dict) -> list:
     """Run ``reqs`` to the end on ``eng``; with ``profile``, trace the
@@ -767,8 +845,7 @@ def serve_all(torch, _build, dev, eng, reqs, profile: bool,
     info["profiled"] = profile      # a traced run is slower
     info["launches"] = dict(_build.launch_counts)
     n_tok = sum(len(r.out) for r in done)
-    info["tokens_sha256"] = hashlib.sha256(json.dumps(
-        sorted((r.uid, r.out) for r in done)).encode()).hexdigest()
+    info["tokens_sha256"] = tokens_digest(done)
     info.update(requests=len(done), generated_tokens=n_tok,
                 tokens_per_s=n_tok / info["serve_s"],
                 decode_dispatches=eng.decode_dispatches,
@@ -872,7 +949,8 @@ def phase_w8a8(torch, np, _build, cfg, dev):
     done = eng.run(reqs)
     sync(torch, dev)
     info = {"launches": dict(_build.launch_counts), "requests": len(done),
-            "generated_tokens": sum(len(r.out) for r in done)}
+            "generated_tokens": sum(len(r.out) for r in done),
+            "tokens_sha256": tokens_digest(done)}
     problems = missing_launches("w8a8", info["launches"])
     if len(done) != 4:
         problems.append(f"{len(done)} of 4 requests finished")
@@ -1053,7 +1131,8 @@ def phase_moe_w8a8(torch, np, _build, cfg, dev):
     done = eng.run(reqs)
     sync(torch, dev)
     info = {"launches": dict(_build.launch_counts), "requests": len(done),
-            "generated_tokens": sum(len(r.out) for r in done)}
+            "generated_tokens": sum(len(r.out) for r in done),
+            "tokens_sha256": tokens_digest(done)}
     problems = missing_launches("moe_w8a8", info["launches"])
     if len(done) != 4:
         problems.append(f"{len(done)} of 4 requests finished")
@@ -1172,7 +1251,8 @@ def main() -> int:
                 "shape": r.get("shape"),
                 **{k: v for k, v in r.items()
                    if k.startswith("at_") or k in (
-                       "library", "plan", "stages_ms", "m1_body_ms")}})
+                       "library", "plan", "stages_ms", "m1_body_ms",
+                       "plans_ms", "live_experts", "bound_over")}})
         print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

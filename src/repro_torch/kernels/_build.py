@@ -44,10 +44,10 @@ KERNELS = {
                         "baseline_matmul_launch", [_P] * 3 + [_I] * 6 + [_P]),
     "apsq_expert_matmul": ("apsq_matmul/csrc/apsq_matmul.cu",
                            "apsq_expert_matmul_launch",
-                           [_P] * 4 + [_I] * 7 + [_P]),
+                           [_P] * 4 + [_I] * 10 + [_P]),
     "baseline_expert_matmul": ("apsq_matmul/csrc/apsq_matmul.cu",
                                "baseline_expert_matmul_launch",
-                               [_P] * 3 + [_I] * 4 + [_P]),
+                               [_P] * 3 + [_I] * 7 + [_P]),
     "int8_kv_attention": ("int8_kv_attention/csrc/int8_kv_attention.cu",
                           "int8_kv_attention_launch",
                           [_P] * 8 + [_I] * 6 + [_F] + [_I] * 4 + [_P]),

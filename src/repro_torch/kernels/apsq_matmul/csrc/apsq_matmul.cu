@@ -12,11 +12,12 @@
 //       -> baseline_matmul_launch (INT32-accumulator W8A8, on the int8
 //          tensor cores: w8a8_mma_kernel)
 //   * apsq_expert_matmul_kernel (:419, body _apsq_expert_kernel :339)
-//       -> apsq_expert_matmul_launch (fused MoE expert bank, gemm_kernel)
+//       -> apsq_expert_matmul_launch (fused MoE expert bank,
+//          expert_stream_kernel: Algorithm 1 in registers)
 //   * baseline_expert_matmul_kernel (:472, body _baseline_expert_kernel
 //                                    :395)
 //       -> baseline_expert_matmul_launch (INT32-accumulator expert bank,
-//          gemm_kernel)
+//          the same kernel with one accumulation over all of K)
 //
 // Semantics: bit-exact with the integer oracle (ref.py).  [M, K] int8 x
 // [K, N] int8 -> [M, N] int32 in product-scale units, K = n_p * bk (the
@@ -29,9 +30,9 @@
 // chunks) every weight byte is read once and reused M times, so the
 // bound is bytes (K*N weight bytes at 3.35 TB/s: 3.4 us at K=2048
 // N=5632); at large M it becomes int8 operations (2*M*K*N at the int8
-// tensor-core peak).  An expert bank reads all E*K*N weight bytes
-// whatever the routing (E*K*N at 3.35 TB/s: 40 us for one OLMoE expert
-// GEMM, 64 x 2048 x 1024).
+// tensor-core peak).  An expert bank reads the weights of the experts
+// that routing filled (E*K*N at 3.35 TB/s: 40 us for one OLMoE expert
+// GEMM, 64 x 2048 x 1024, with every expert live).
 //
 // Algorithm 1 on Hopper (apsq_matmul_launch, apsq_matmul_m1_launch).  On
 // the TPU the K grid axis is sequential and the gs INT8 PSUM banks live
@@ -61,25 +62,43 @@
 //   same transposed weight words into __dp4a, the sums met by warp
 //   shuffles), whichever was measured faster at M=1 K=5632 N=2048.
 //
-// Expert banks (gemm_kernel: scalar int32 multiply-adds, no tensor
-// cores).  One block owns 32 output columns (one per lane) x BM
-// rows and walks all n_p PSUM tiles itself; its 8 warps split each
-// tile's K range, the per-warp partials are summed in shared memory and
-// warp 0 requantizes the tile on the spot.  The expert is blockIdx.z:
-// each block offsets x, w, out and the exponent bank ([E, n_p] or
-// [E, n_p, N]) by its expert, so one launch serves all E experts.  M is
-// the expert capacity (1-3 rows at OLMoE serving shapes): the launch
-// picks BM in {1, 2, 4, 8} from M and masks the rows past M, where the
-// JAX wrapper pads M to 8.
+// Expert banks (apsq_expert_matmul_launch, baseline_expert_matmul_launch;
+// expert_stream_kernel below).  M is the expert capacity (1-3 rows at
+// OLMoE serving shapes), so each weight byte feeds about 2 int8
+// operations and only the bytes count: the design streams them and
+// skips the ones it can.
+//
+// * Grid (BN columns, 16 rows, expert): a block owns one expert's BN
+//   (64 or 128, ops.expert_plan) columns and walks all of K itself.  E=64
+//   gives >= 512 blocks at N=1024 with no K split: no scratch, no atomics,
+//   one kernel.  Its warps split the columns, 32 each, so a warp's
+//   mma.sync m16n8k32 accumulators hold the whole tile's exact INT32
+//   partial of its columns.
+// * The expert's weight rows stream through a ring of STAGES shared
+//   stages of 64 K rows, filled with 16-byte cp.async copies that stay in
+//   flight while earlier stages are consumed.  A stage never crosses a
+//   PSUM tile's end: it loads zeros at and past it (bk = 12, 37, 138).
+//   A tile's last stage also brings the tile's exponents, so the step
+//   below never waits on a global load and n_p needs no shared memory.
+// * At each PSUM tile's end every lane applies Algorithm 1's carry form
+//   (as algorithm1 below) to its accumulators in registers, and clears
+//   them: no cross-warp reduction, no bank registers, gs unbounded.
+//   Each exponent becomes three shift operands first (po2_of), so the
+//   step is a few integer ops per element: the integer pipes are shared
+//   with the stream's address arithmetic.
+// * A block first ORs its expert's activation codes; if all are zero
+//   (routing left the expert empty: the dispatch buffer is zeros there)
+//   it stores zeros and reads no weight byte.  That is exact: a zero row
+//   gives 0 through the W8A8 sum and through Algorithm 1 under every
+//   exponent (quant(0, e) = 0 for e != 32; at e = 32 the code is -1 and
+//   deq(-1, 32) = 0).
+//
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int KC = 1024;        // activation bytes staged per row per pass
-constexpr int WARPS = 8, THREADS = 32 * WARPS, COLS = 32;
-constexpr int GEN_BM = 8;         // rows per block of the generic kernel
 
 __device__ __forceinline__ int32_t shl(int32_t a, int32_t s) {
   return (s >= 0 && s < 32) ? (int32_t)((uint32_t)a << s) : 0;
@@ -105,156 +124,9 @@ __device__ __forceinline__ int32_t deq(int32_t code, int32_t e) {
   return shl(code, e);
 }
 
-// gs <= 16 INT8 bank codes of one output element, packed in two words.
-struct Banks {
-  unsigned long long lo, hi;
-  __device__ __forceinline__ void clear() { lo = 0ull; hi = 0ull; }
-  __device__ __forceinline__ void set(int p, int32_t code) {
-    unsigned long long b = (unsigned long long)(uint8_t)(int8_t)code;
-    if (p < 8) lo |= b << (8 * p);
-    else hi |= b << (8 * (p - 8));
-  }
-  __device__ __forceinline__ int32_t get(int p) const {
-    unsigned long long w = p < 8 ? lo >> (8 * p) : hi >> (8 * (p - 8));
-    return (int32_t)(int8_t)(uint8_t)(w & 0xffull);
-  }
-};
-
 __device__ __forceinline__ int32_t exp_at(const int32_t* exps, int i, int n,
                                           int N, int exp_cols) {
   return exp_cols ? exps[(size_t)i * N + n] : exps[i];
-}
-
-// One block owns COLS = 32 output columns (one per lane) x BM rows and
-// walks every PSUM tile; its WARPS warps split each tile's K range, and
-// the per-warp INT32 partial products are summed (mod 2^32, so the order
-// does not matter) in shared memory before warp 0 applies the Algorithm-1
-// step for that tile.  APSQ = false is the INT32-accumulator baseline:
-// one tile over all of K, no requantization.  EXPERT: blockIdx.z is the
-// expert, operands are [E, M, K], [E, K, N] -> [E, M, N] (a separate
-// instance, so the plain GEMMs' code is untouched by the offsets).
-template <int BM, bool APSQ, bool EXPERT = false>
-__global__ void __launch_bounds__(THREADS)
-gemm_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
-            const int32_t* __restrict__ exps, int32_t* __restrict__ out,
-            int M, int N, int n_p, int bk, int gs, int exp_cols) {
-  __shared__ int8_t xs[BM][KC];
-  __shared__ int32_t red[WARPS][BM][COLS];
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int n = blockIdx.x * COLS + lane;
-  const int row0 = blockIdx.y * BM;
-  const int K = n_p * bk;
-  if (EXPERT) {
-    const size_t e = blockIdx.z;
-    x += e * M * K;
-    w += e * K * N;
-    out += e * M * N;
-    if (APSQ) exps += e * n_p * (exp_cols ? N : 1);
-  }
-  const int last = n_p - 1;
-  Banks bank[BM];
-#pragma unroll
-  for (int r = 0; r < BM; ++r) bank[r].clear();
-
-  for (int i = 0; i < n_p; ++i) {
-    int32_t prod[BM];
-#pragma unroll
-    for (int r = 0; r < BM; ++r) prod[r] = 0;
-    for (int kc = 0; kc < bk; kc += KC) {
-      const int cl = min(KC, bk - kc);
-      const int kbase = i * bk + kc;
-      for (int idx = threadIdx.x; idx < BM * cl; idx += THREADS) {
-        const int r = idx / cl, kk = idx % cl;
-        const int row = row0 + r;
-        xs[r][kk] = row < M ? x[(size_t)row * K + kbase + kk] : (int8_t)0;
-      }
-      __syncthreads();
-      const int per = (cl + WARPS - 1) / WARPS;
-      const int k0 = warp * per, k1 = min(cl, k0 + per);
-      if (n < N) {
-        const int8_t* wp = w + (size_t)kbase * N + n;
-#pragma unroll 4
-        for (int kk = k0; kk < k1; ++kk) {
-          const int32_t wv = wp[(size_t)kk * N];
-#pragma unroll
-          for (int r = 0; r < BM; ++r)
-            prod[r] = wadd(prod[r], (int32_t)xs[r][kk] * wv);
-        }
-      }
-      __syncthreads();
-    }
-#pragma unroll
-    for (int r = 0; r < BM; ++r) red[warp][r][lane] = prod[r];
-    __syncthreads();
-    if (warp == 0 && n < N) {
-#pragma unroll
-      for (int r = 0; r < BM; ++r) {
-        int32_t p = 0;
-#pragma unroll
-        for (int v = 0; v < WARPS; ++v) p = wadd(p, red[v][r][lane]);
-        const int row = row0 + r;
-        if (!APSQ) {
-          if (row < M) out[(size_t)row * N + n] = p;
-          continue;
-        }
-        const int g0 = (i / gs) * gs;      // group start of tile i
-        const int q0 = i - g0;             // position inside the group
-        const int32_t ei = exp_at(exps, i, n, N, exp_cols);
-        if (q0 == 0) {                     // group start: APSQ
-          int32_t acc = p;
-          if (i > 0)
-            for (int q = 0; q < gs; ++q)   // fold the previous group's banks
-              acc = wadd(acc, deq(bank[r].get(q),
-                                  exp_at(exps, i - gs + q, n, N, exp_cols)));
-          const int32_t code = quant(acc, ei);
-          if (i == last) {
-            if (row < M) out[(size_t)row * N + n] = deq(code, ei);
-          } else {
-            bank[r].clear();
-            bank[r].set(0, code);
-          }
-        } else if (i < last) {             // tail tile: plain PSQ
-          bank[r].set(q0, quant(p, ei));
-        } else {                           // final tile closes mid-group
-          int32_t acc = p;
-          for (int q = 0; q < q0; ++q)
-            acc = wadd(acc, deq(bank[r].get(q),
-                                exp_at(exps, g0 + q, n, N, exp_cols)));
-          if (row < M) out[(size_t)row * N + n] = deq(quant(acc, ei), ei);
-        }
-      }
-    }
-    __syncthreads();
-  }
-}
-
-template <int BM, bool APSQ, bool EXPERT = false>
-int launch(const void* x, const void* w, const void* exps, void* out, int M,
-           int N, int n_p, int bk, int gs, int exp_cols, void* stream,
-           int E = 1) {
-  dim3 grid((N + COLS - 1) / COLS, (M + BM - 1) / BM, E);
-  gemm_kernel<BM, APSQ, EXPERT><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-      (const int8_t*)x, (const int8_t*)w, (const int32_t*)exps,
-      (int32_t*)out, M, N, n_p, bk, gs, exp_cols);
-  return (int)cudaGetLastError();
-}
-
-// Expert banks: the fewest rows per block that cover M (up to GEN_BM).
-template <bool APSQ>
-int launch_experts(const void* x, const void* w, const void* exps, void* out,
-                   int E, int M, int N, int n_p, int bk, int gs,
-                   int exp_cols, void* stream) {
-  if (M <= 1)
-    return launch<1, APSQ, true>(x, w, exps, out, M, N, n_p, bk, gs,
-                                 exp_cols, stream, E);
-  if (M <= 2)
-    return launch<2, APSQ, true>(x, w, exps, out, M, N, n_p, bk, gs,
-                                 exp_cols, stream, E);
-  if (M <= 4)
-    return launch<4, APSQ, true>(x, w, exps, out, M, N, n_p, bk, gs,
-                                 exp_cols, stream, E);
-  return launch<GEN_BM, APSQ, true>(x, w, exps, out, M, N, n_p, bk, gs,
-                                    exp_cols, stream, E);
 }
 
 // ---------------------------------------------------------------------------
@@ -262,7 +134,7 @@ int launch_experts(const void* x, const void* w, const void* exps, void* out,
 // (baseline_matmul_launch; replaces kernel.py:509 baseline_matmul_kernel).
 //
 // Bound on the H100: at serving M (1-33 rows) the weights dominate, so
-// the bound is bytes (K*N at 3.35 TB/s); the scalar template above
+// the bound is bytes (K*N at 3.35 TB/s); scalar int32 multiply-adds
 // reached 3% of it at M=8.  Design:
 //
 // * mma.sync m16n8k32 s8 x s8 -> s32 (inline PTX).  Its B operand wants
@@ -496,7 +368,7 @@ __device__ __forceinline__ void tile_range(int z, int bk, int splits,
 // Algorithm 1 for output element idx = m * N + n over its n_p tile
 // partials (tile i's is the wrapping sum of its `splits` slots, mn
 // apart): APSQ at group starts, PSQ on tails, the final tile closing
-// mid-group.  Where gemm_kernel keeps the group's INT8 codes and
+// mid-group.  Where the TPU kernel keeps the group's INT8 codes and
 // dequantizes them at the next fold, each code is dequantized as it is
 // made into one running int32 sum (`carry`): the same values added mod
 // 2^32 in another order, so the same bits, with no bank registers and no
@@ -662,6 +534,366 @@ int launch_apsq(const void* x, const void* w, const void* exps, void* part,
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// Fused MoE expert banks (see the note at the top of the file):
+// [E, M, K] int8 x [E, K, N] int8 -> [E, M, N] int32, Algorithm 1 per
+// expert (APSQ) or one INT32 sum over K (APSQ = false, W8A8).
+
+constexpr int XS_BK = 64;              // K rows per pipeline stage
+constexpr int XS_BM = 16;              // rows per block: one m16 tile
+constexpr int XS_WPAD = 32;            // bytes past BN in a weight row
+constexpr int XS_XROW = XS_BK + 16;    // bytes per activation row
+
+// The activation word of the mma's K slots 4t .. 4t+3: bytes t, t+4, t+8,
+// t+12 of a 16-byte run (column t of its 4x4 transpose), the selector
+// PRMT_COL_BASE + t * PRMT_COL_STEP taking byte t of two words.
+constexpr unsigned PRMT_COL_BASE = 0x40u;    // x.b0 y.b0
+constexpr unsigned PRMT_COL_STEP = 0x11u;
+
+// quant and deq at 2^e as three shift operands, XLA's semantics folded
+// in: quant(v, e) = clip((v + bias) >> sh) and deq(c, e) = (c << dsh) &
+// dmask.  e <= 0: bias 0, sh 0; 1 <= e < 32: bias 2^(e-1), sh e; e = 32:
+// bias shl(1, 31), sh 31 (sra by 32 is a shift by 31); e > 32: bias 0,
+// sh 31; deq is c << e for 0 <= e < 32 and 0 otherwise.  So a step costs
+// an add, a shift, a clip and a masked shift per element.
+struct Po2 {
+  int32_t bias, sh, dsh, dmask;
+};
+
+__device__ __forceinline__ Po2 po2_of(int32_t e) {
+  Po2 p;
+  p.bias = e > 0 ? shl(1, e - 1) : 0;
+  p.sh = e <= 0 ? 0 : min(e, 31);
+  p.dsh = e & 31;
+  p.dmask = (e >= 0 && e < 32) ? -1 : 0;
+  return p;
+}
+
+__device__ __forceinline__ int32_t quant_deq(int32_t v, const Po2& p) {
+  const int32_t r = min(max(wadd(v, p.bias) >> p.sh, -128), 127);
+  return (int32_t)((uint32_t)r << p.dsh) & p.dmask;
+}
+
+__device__ __forceinline__ uint32_t xcol(const uint4& v, unsigned sel) {
+  return __byte_perm(__byte_perm(v.x, v.y, sel), __byte_perm(v.z, v.w, sel),
+                     PRMT_HALF_LO);
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// 16 bytes at src into the shared dst, of which the first n (<= 0: none)
+// are read and the rest are zeros: one cp.async where all 16 are read and
+// the copy is aligned (vec), else byte loads and one shared store.
+__device__ __forceinline__ void stage16(int8_t* dst, const int8_t* src,
+                                        int n, bool vec) {
+  if (vec && n >= 16) {
+    cp_async16(dst, src);
+    return;
+  }
+  uint32_t v[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+  for (int i = 0; i < 16; ++i)
+    if (i < n) v[i / 4] |= (uint32_t)(uint8_t)src[i] << (8 * (i % 4));
+  *reinterpret_cast<uint4*>(dst) = make_uint4(v[0], v[1], v[2], v[3]);
+}
+
+// Stage st = (PSUM tile, 64-row step) of a block's walk into its ring
+// slot: weight rows kb .. kb+63 x the block's BN columns, and the same K
+// bytes of its `rows` activation rows; zeros at and past the tile's end
+// ke and past N.  Activation rows past `rows` are left as they are (the
+// mma loads never read them).  The last stage of a tile also brings the
+// tile's exponents `ex` (of the block's columns, or the one of the tile)
+// into `esl`, so the Algorithm-1 step reads them from shared memory.
+template <int BN, int THREADS>
+__device__ __forceinline__ void expert_stage(
+    int8_t* __restrict__ wsl, int8_t* __restrict__ xsl,
+    int32_t* __restrict__ esl, const int8_t* __restrict__ x,
+    const int8_t* __restrict__ w, const int32_t* __restrict__ ex, int rows,
+    int N, int K, int n0, int kb, int ke, bool x_vec, bool w_vec,
+    int exp_cols) {
+  if (ex != nullptr) {
+    for (int c = threadIdx.x; c < (exp_cols ? BN : 1); c += THREADS) {
+      const int col = exp_cols ? n0 + c : 0;
+      if (col < N) cp_async4(esl + c, ex + col);
+      else esl[c] = 0;
+    }
+  }
+  constexpr int WCH = BN / 16;             // 16-byte chunks per weight row
+  if (w_vec && x_vec && ke - kb == XS_BK && n0 + BN <= N) {
+    // a whole stage: each thread copies rows r + 16u of its chunk, and
+    // one 16-byte run of an activation row (THREADS = BN >= 4 * rows)
+    const int r = threadIdx.x / WCH, cc = 16 * (threadIdx.x % WCH);
+    const int8_t* src = w + (size_t)(kb + r) * N + n0 + cc;
+#pragma unroll
+    for (int u = 0; u < XS_BK * WCH / THREADS; ++u)
+      cp_async16(wsl + (r + u * (THREADS / WCH)) * (BN + XS_WPAD) + cc,
+                 src + (size_t)u * (THREADS / WCH) * N);
+    if (threadIdx.x < rows * (XS_BK / 16)) {
+      const int xr = threadIdx.x / (XS_BK / 16);
+      const int kk = 16 * (threadIdx.x % (XS_BK / 16));
+      cp_async16(xsl + xr * XS_XROW + kk, x + (size_t)xr * K + kb + kk);
+    }
+    return;
+  }
+  for (int c = threadIdx.x; c < XS_BK * WCH; c += THREADS) {
+    const int r = c / WCH, cc = 16 * (c % WCH);
+    const int k = kb + r, col = n0 + cc;
+    stage16(wsl + r * (BN + XS_WPAD) + cc, w + (size_t)k * N + col,
+            k < ke ? N - col : 0, w_vec);
+  }
+  for (int c = threadIdx.x; c < rows * (XS_BK / 16); c += THREADS) {
+    const int r = c / (XS_BK / 16), kk = 16 * (c % (XS_BK / 16));
+    stage16(xsl + r * XS_XROW + kk, x + (size_t)r * K + kb + kk,
+            ke - kb - kk, x_vec);
+  }
+}
+
+// One block: expert blockIdx.z, rows m0 .. m0+15 (masked past M), columns
+// n0 .. n0+BN-1, all of K.  Warp `warp` owns columns n0 + 32*warp + 0..31
+// in 4 n8 tiles: tile q's column j is 32*warp + 4j + q, so a lane's one
+// 4-byte load of a weight row gives 4 columns, one per tile, at its own
+// index g, and a __byte_perm 4x4 transpose of 4 such rows gives its B
+// words.  The mma's K slots 4t+i (and 16+4t+i) take the stage rows
+// 32s + t + 4i (and 32s + 16 + t + 4i): the 4 lane groups t read 4
+// neighbouring rows, which the 32-byte row pad puts on distinct banks,
+// and the activation side takes the same K permutation (xcol).
+template <int WARPS, int STAGES, bool APSQ>
+__global__ void __launch_bounds__(32 * WARPS, 16 / WARPS)
+expert_stream_kernel(const int8_t* __restrict__ x,
+                     const int8_t* __restrict__ w,
+                     const int32_t* __restrict__ exps,
+                     int32_t* __restrict__ out, int M, int N, int n_p, int bk,
+                     int gs, int exp_cols, int x_vec, int w_vec) {
+  constexpr int BN = 32 * WARPS, THREADS = 32 * WARPS;
+  constexpr int WROW = BN + XS_WPAD;
+  constexpr int WSTAGE = XS_BK * WROW, XSTAGE = XS_BM * XS_XROW;
+  constexpr int ESTAGE = APSQ ? BN : 0;        // int32 exponents a stage
+  extern __shared__ __align__(16) int8_t smem[];
+  int8_t* const ws = smem;
+  int8_t* const xs = smem + STAGES * WSTAGE;
+  int32_t* const es = reinterpret_cast<int32_t*>(xs + STAGES * XSTAGE);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int n0 = blockIdx.x * BN, m0 = blockIdx.y * XS_BM;
+  const size_t e = blockIdx.z;
+  const int K = n_p * bk;
+  const int rows = min(XS_BM, M - m0);
+  x += (e * M + m0) * K;                   // the block's activation rows
+  w += e * K * N;
+  out += (e * M + m0) * N;
+  if (APSQ) exps += e * n_p * (exp_cols ? N : 1);
+
+  // An expert that routing left empty: zeros out, no weight byte read.
+  int any = 0;
+  if (x_vec) {
+    const uint4* xv = reinterpret_cast<const uint4*>(x);
+    for (int i = threadIdx.x; i < rows * K / 16; i += THREADS) {
+      const uint4 v = __ldg(xv + i);
+      any |= (int)(v.x | v.y | v.z | v.w);
+    }
+  } else {
+    for (int i = threadIdx.x; i < rows * K; i += THREADS) any |= x[i];
+  }
+  if (!__syncthreads_or(any)) {
+    for (int i = threadIdx.x; i < rows * BN; i += THREADS) {
+      const int n = n0 + i % BN;
+      if (n < N) out[(size_t)(i / BN) * N + n] = 0;
+    }
+    return;
+  }
+
+  const int spt = max(1, (bk + XS_BK - 1) / XS_BK);   // stages per tile
+  const int total = n_p * spt, last = n_p - 1;
+  // the next stage to issue: its tile ni, step nj and ring slot ns
+  int ni = 0, nj = 0, ns = 0;
+  auto issue_next = [&]() {
+    const int kb = ni * bk + nj * XS_BK;
+    const int32_t* ex = APSQ && nj == spt - 1
+        ? exps + (size_t)ni * (exp_cols ? N : 1) : nullptr;
+    expert_stage<BN, THREADS>(ws + ns * WSTAGE, xs + ns * XSTAGE,
+                              es + ns * ESTAGE, x, w, ex, rows, N, K, n0, kb,
+                              min(ni * bk + bk, kb + XS_BK), x_vec, w_vec,
+                              exp_cols);
+    if (++nj == spt) nj = 0, ++ni;
+    if (++ns == STAGES) ns = 0;
+  };
+#pragma unroll
+  for (int st = 0; st < STAGES - 1; ++st) {
+    if (st < total) issue_next();
+    cp_async_commit();
+  }
+
+  // acc[q][c]: n8 tile q, fragment c: row g + 8*(c/2), column
+  // 32*warp + 8t + 4*(c%2) + q; carry: Algorithm 1's running sum there.
+  int32_t acc[4][4], carry[4][4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[q][c] = carry[q][c] = 0;
+  const unsigned xsel = PRMT_COL_BASE + (unsigned)t * PRMT_COL_STEP;
+  const bool live0 = g < rows, live1 = g + 8 < rows;
+  const int ncol = n0 + 32 * warp + 8 * t;      // the lane's 8 columns
+  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+
+  // stage it: tile i, step j, ring slot cs
+  for (int it = 0, i = 0, j = 0, cs = 0; it < total; ++it) {
+    cp_async_wait<STAGES - 2>();                // stage it has landed
+    __syncthreads();                            // ... for every thread
+    if (it + STAGES - 1 < total) issue_next();
+    cp_async_commit();
+    const int8_t* wsl = ws + cs * WSTAGE + 32 * warp + 4 * g;
+    const int8_t* xsl = xs + cs * XSTAGE;
+#pragma unroll
+    for (int s = 0; s < XS_BK / 32; ++s) {
+      const int8_t* x0 = xsl + g * XS_XROW + 32 * s;
+      const int8_t* x1 = x0 + 8 * XS_XROW;
+      const uint4 r00 = live0 ? *reinterpret_cast<const uint4*>(x0) : zero;
+      const uint4 r01 = live0 ? *reinterpret_cast<const uint4*>(x0 + 16)
+                              : zero;
+      const uint4 r10 = live1 ? *reinterpret_cast<const uint4*>(x1) : zero;
+      const uint4 r11 = live1 ? *reinterpret_cast<const uint4*>(x1 + 16)
+                              : zero;
+      uint32_t b[2][4];
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int8_t* p = wsl + (32 * s + 16 * hh + t) * WROW;
+        transpose4x4(*reinterpret_cast<const uint32_t*>(p),
+                     *reinterpret_cast<const uint32_t*>(p + 4 * WROW),
+                     *reinterpret_cast<const uint32_t*>(p + 8 * WROW),
+                     *reinterpret_cast<const uint32_t*>(p + 12 * WROW),
+                     b[hh]);
+      }
+      const uint32_t a0 = xcol(r00, xsel), a1 = xcol(r10, xsel);
+      const uint32_t a2 = xcol(r01, xsel), a3 = xcol(r11, xsel);
+#pragma unroll
+      for (int q = 0; q < 4; ++q) mma_s8(acc[q], a0, a1, a2, a3, b[0][q],
+                                         b[1][q]);
+    }
+    if (APSQ && j == spt - 1) {                 // PSUM tile i is complete
+      Po2 pe[8];              // the exponents of the lane's columns
+      const int32_t* esl = es + cs * ESTAGE;
+      if (exp_cols) {
+        const int4 lo = *reinterpret_cast<const int4*>(esl + ncol - n0);
+        const int4 hi = *reinterpret_cast<const int4*>(esl + ncol - n0 + 4);
+        pe[0] = po2_of(lo.x); pe[1] = po2_of(lo.y);
+        pe[2] = po2_of(lo.z); pe[3] = po2_of(lo.w);
+        pe[4] = po2_of(hi.x); pe[5] = po2_of(hi.y);
+        pe[6] = po2_of(hi.z); pe[7] = po2_of(hi.w);
+      } else {
+        const Po2 p0 = po2_of(esl[0]);
+#pragma unroll
+        for (int jj = 0; jj < 8; ++jj) pe[jj] = p0;
+      }
+      // rows g + 8 (fragments 2, 3) hold no output where M <= 8
+      const int nc = rows > 8 ? 4 : 2;
+      if (i % gs == 0 || i == last) {
+        // group start (APSQ) or the final tile: requantize the tile's
+        // partial with the running sum
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+#pragma unroll
+          for (int c = 0; c < 4; ++c)
+            if (c < nc)
+              carry[q][c] = quant_deq(wadd(acc[q][c], carry[q][c]),
+                                      pe[4 * (c % 2) + q]);
+      } else {                                  // a tail: add its PSQ code
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+#pragma unroll
+          for (int c = 0; c < 4; ++c)
+            if (c < nc)
+              carry[q][c] = wadd(carry[q][c],
+                                 quant_deq(acc[q][c], pe[4 * (c % 2) + q]));
+      }
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[q][c] = 0;
+    }
+    if (++j == spt) j = 0, ++i;
+    if (++cs == STAGES) cs = 0;
+  }
+
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {              // rows g and g + 8
+    const int r = g + 8 * hh;
+    if (r >= rows) continue;
+    int32_t v[8];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      v[q] = APSQ ? carry[q][2 * hh] : acc[q][2 * hh];
+      v[4 + q] = APSQ ? carry[q][2 * hh + 1] : acc[q][2 * hh + 1];
+    }
+    int32_t* o = out + (size_t)r * N + ncol;
+    if (N % 4 == 0 && ncol + 8 <= N) {
+      reinterpret_cast<int4*>(o)[0] = make_int4(v[0], v[1], v[2], v[3]);
+      reinterpret_cast<int4*>(o)[1] = make_int4(v[4], v[5], v[6], v[7]);
+    } else {
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj)
+        if (ncol + jj < N) o[jj] = v[jj];
+    }
+  }
+}
+
+template <int WARPS, int STAGES, bool APSQ>
+int launch_expert_stream(const void* x, const void* w, const void* exps,
+                         void* out, int E, int M, int N, int n_p, int bk,
+                         int gs, int exp_cols, cudaStream_t st) {
+  constexpr int BN = 32 * WARPS;
+  const int smem = STAGES * (XS_BK * (BN + XS_WPAD) + XS_BM * XS_XROW +
+                            (APSQ ? 4 * BN : 0));
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        expert_stream_kernel<WARPS, STAGES, APSQ>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const int K = n_p * bk;
+  const bool x_vec = K % 16 == 0 && bk % 16 == 0 && (uintptr_t)x % 16 == 0;
+  const bool w_vec = N % 16 == 0 && (uintptr_t)w % 16 == 0;
+  dim3 grid((N + BN - 1) / BN, (M + XS_BM - 1) / XS_BM, E);
+  expert_stream_kernel<WARPS, STAGES, APSQ><<<grid, 32 * WARPS, smem, st>>>(
+      (const int8_t*)x, (const int8_t*)w, (const int32_t*)exps,
+      (int32_t*)out, M, N, n_p, bk, gs, exp_cols, x_vec, w_vec);
+  return (int)cudaGetLastError();
+}
+
+// bn (32 per warp), stages, bm: the wrapper's plan (ops.expert_plan).
+template <bool APSQ>
+int launch_expert(const void* x, const void* w, const void* exps, void* out,
+                  int E, int M, int N, int n_p, int bk, int gs, int exp_cols,
+                  int bn, int stages, int bm, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (bm != XS_BM || E > 65535 || n_p < 1 || gs < 1) return -1;
+#define EXPERT_CASE(W, S)                                                   \
+  if (bn == 32 * W && stages == S)                                          \
+    return launch_expert_stream<W, S, APSQ>(x, w, exps, out, E, M, N, n_p,  \
+                                            bk, gs, exp_cols, st);
+  EXPERT_CASE(2, 4) EXPERT_CASE(4, 4)
+#undef EXPERT_CASE
+  return -1;
+}
+
 }  // namespace
 
 // bm, splits, k_split: the wrapper's plan (ops.apsq_plan); part: the
@@ -691,17 +923,20 @@ extern "C" int baseline_matmul_launch(const void* x, const void* w, void* out,
   return launch_w8a8(x, w, out, M, N, K, bm, splits, k_split, stream);
 }
 
+// bn, stages, bm: the wrapper's plan (ops.expert_plan).
 extern "C" int apsq_expert_matmul_launch(const void* x, const void* w,
                                          const void* exps, void* out, int E,
                                          int M, int N, int n_p, int bk,
-                                         int gs, int exp_cols, void* stream) {
-  return launch_experts<true>(x, w, exps, out, E, M, N, n_p, bk, gs,
-                              exp_cols, stream);
+                                         int gs, int exp_cols, int bn,
+                                         int stages, int bm, void* stream) {
+  return launch_expert<true>(x, w, exps, out, E, M, N, n_p, bk, gs, exp_cols,
+                             bn, stages, bm, stream);
 }
 
 extern "C" int baseline_expert_matmul_launch(const void* x, const void* w,
                                              void* out, int E, int M, int N,
-                                             int K, void* stream) {
-  return launch_experts<false>(x, w, nullptr, out, E, M, N, 1, K, 1, 0,
-                               stream);
+                                             int K, int bn, int stages,
+                                             int bm, void* stream) {
+  return launch_expert<false>(x, w, nullptr, out, E, M, N, 1, K, 1, 0, bn,
+                              stages, bm, stream);
 }

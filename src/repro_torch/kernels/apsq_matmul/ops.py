@@ -18,14 +18,13 @@ from .. import _build
 from .._build import NUM_SMS
 from . import ref
 
-# Largest number of live INT8 bank codes per output element the expert
-# kernels keep in registers (two packed 64-bit words).
-MAX_BANKS = 16
-
 W8_BN = 64           # columns per block of the tensor-core kernels
 W8_KS = 64           # K rows per warp slice of them
 W8_WARPS = 4         # warps per block of them
 M1_BM = 1            # the APSQ body at M == 1: 1 = one-row dp4a, 16 = mma
+
+XS_BM = 16           # rows per block of the expert kernels: one m16 tile
+EXPERT_STAGES = 4    # stages in their ring of weight tiles
 
 
 class BaselinePlan(NamedTuple):
@@ -76,6 +75,27 @@ def apsq_plan(m: int, n: int, k: int, n_p: int) -> ApsqPlan:
     splits = max(1, int(3 * NUM_SMS / blocks + 0.5))
     k_split = max(1, math.ceil(bk / splits / rnd)) * rnd
     return ApsqPlan(bm, max(1, math.ceil(bk / k_split)), k_split)
+
+
+class ExpertPlan(NamedTuple):
+    """How the expert kernels cut [E, M, K] @ [E, K, N]: a block owns
+    ``bn`` columns (64 or 128: 32 per warp) x ``bm`` rows (16) of one
+    expert and walks all of K, streaming the weights through a ring of
+    ``stages`` shared stages of 64 K rows; a stage never crosses a PSUM
+    tile's end, and a tile's last stage brings its exponents."""
+    bn: int
+    stages: int
+    bm: int
+
+
+@functools.lru_cache(maxsize=256)
+def expert_plan(e: int, m: int, n: int, k: int, n_p: int) -> ExpertPlan:
+    """A pure function of the shapes: 128 columns per block where that
+    still gives two blocks per SM, else 64.  K and the PSUM tiles set only
+    each block's walk, not the cut, since no block splits K."""
+    wide = e * math.ceil(n / 128) * math.ceil(m / XS_BM)
+    return ExpertPlan(128 if wide >= 2 * NUM_SMS else 64, EXPERT_STAGES,
+                      XS_BM)
 
 
 def _check_operands(x_codes, w_codes, *, experts: bool = False):
@@ -145,7 +165,9 @@ def apsq_expert_matmul_int8(x_codes: torch.Tensor, w_codes: torch.Tensor,
     handling -> INT32 [E, M, N], all experts in one launch.
 
     ``exps`` is [E, n_p] or [E, n_p, N]; bit-identical to
-    ``ref.apsq_expert_matmul_ref`` (E calls of the 2-D oracle)."""
+    ``ref.apsq_expert_matmul_ref`` (E calls of the 2-D oracle).  Any gs:
+    the kernel keeps one running int32 per output element.  Experts whose
+    rows are all zero read no weights (the kernel checks on the card)."""
     _check_operands(x_codes, w_codes, experts=True)
     e_, m, _ = x_codes.shape
     n = w_codes.shape[2]
@@ -156,10 +178,9 @@ def apsq_expert_matmul_int8(x_codes: torch.Tensor, w_codes: torch.Tensor,
     if x_codes.device.type == "cpu":
         return ref.apsq_expert_matmul_ref(x_codes, w_codes, exps, gs=gs)
     n_p = int(exps.shape[1])
-    gs_eff = min(int(gs), n_p)
-    if gs_eff < 1 or gs_eff > MAX_BANKS:
-        raise ValueError(f"gs={gs} (n_p={n_p}): the CUDA kernel keeps at "
-                         f"most {MAX_BANKS} bank codes")
+    gs_eff = min(int(gs), n_p)   # gs >= n_p is PSQ: one group over all tiles
+    if gs_eff < 1:
+        raise ValueError(f"gs={gs} must be >= 1")
     x_codes, w_codes = ref.pad_ragged_k(x_codes, w_codes, n_p)
     x = x_codes.contiguous()
     w = w_codes.contiguous()
@@ -167,10 +188,11 @@ def apsq_expert_matmul_int8(x_codes: torch.Tensor, w_codes: torch.Tensor,
     out = torch.empty((e_, m, n), dtype=torch.int32, device=x.device)
     if e_ == 0 or m == 0 or n == 0:
         return out
+    k = x.shape[2]
     err = _build.entry("apsq_expert_matmul")(
         x.data_ptr(), w.data_ptr(), e.data_ptr(), out.data_ptr(), e_, m, n,
-        n_p, x.shape[2] // n_p, gs_eff, int(e.dim() == 3),
-        _build.stream_ptr(x.device))
+        n_p, k // n_p, gs_eff, int(e.dim() == 3),
+        *expert_plan(e_, m, n, k, n_p), _build.stream_ptr(x.device))
     _build.check(err, "apsq_expert_matmul")
     return out
 
@@ -178,7 +200,8 @@ def apsq_expert_matmul_int8(x_codes: torch.Tensor, w_codes: torch.Tensor,
 def baseline_expert_matmul_int8(x_codes: torch.Tensor,
                                 w_codes: torch.Tensor) -> torch.Tensor:
     """INT32-accumulator expert bank [E, M, K] @ [E, K, N] -> [E, M, N]
-    in one launch (W8A8 expert layers)."""
+    in one launch (W8A8 expert layers); the APSQ kernel's walk with one
+    PSUM tile over all of K and no requantization."""
     _check_operands(x_codes, w_codes, experts=True)
     if x_codes.device.type == "cpu":
         return ref.baseline_expert_matmul_ref(x_codes, w_codes)
@@ -191,7 +214,7 @@ def baseline_expert_matmul_int8(x_codes: torch.Tensor,
         return out
     err = _build.entry("baseline_expert_matmul")(
         x.data_ptr(), w.data_ptr(), out.data_ptr(), e_, m, n, k,
-        _build.stream_ptr(x.device))
+        *expert_plan(e_, m, n, k, 1), _build.stream_ptr(x.device))
     _build.check(err, "baseline_expert_matmul")
     return out
 

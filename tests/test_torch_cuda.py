@@ -13,8 +13,11 @@ machine without JAX:
   K=5632, APSQ shift counts past 31) too, bit-identical on repeat, one
   launch count per call.
 * The fused MoE expert GEMMs (APSQ and W8A8, all experts in one
-  launch): bit-exact over E, M (rows past M masked), ragged K, gs and
-  both exponent layouts.
+  launch): bit-exact over E, M (rows past M masked, two row blocks at
+  M=17), ragged K, gs (past 16 too) and both exponent layouts; banks
+  with empty experts and experts with one live row, a routed OLMoE
+  bank, operands 4-byte but not 16-byte aligned; bit-identical on
+  repeat, one launch count per call.
 * INT8-KV attention, decode and chunk forms (hd 8, 16, 64 and 128):
   rtol 2e-5 / atol 2e-6, with S split across blocks (S up to 4096),
   rows whose limit is <= 0 and a cache view that is 4-byte but not
@@ -204,6 +207,8 @@ EXPERT_CASES = [  # (e, m, k, n, n_p, gs, layout)
     (4, 3, 45, 24, 4, 1, "cols"), (4, 3, 45, 24, 4, 4, "vec"),
     (8, 5, 128, 33, 8, 4, "cols"), (3, 16, 96, 20, 8, 3, "vec"),
     (64, 2, 256, 64, 8, 4, "cols"), (2, 9, 1100, 70, 8, 16, "cols"),
+    (2, 3, 480, 24, 24, 17, "cols"), (3, 2, 640, 130, 20, 20, "vec"),
+    (4, 17, 256, 40, 8, 4, "vec"), (2, 17, 1100, 200, 8, 3, "cols"),
 ]
 
 
@@ -228,6 +233,73 @@ def test_expert_kernels_bit_exact(cuda, e, m, k, n, n_p, gs, layout):
         x.to(cuda), w.to(cuda), ex.to(cuda), gs=gs).cpu(), got.cpu())
     for name in ("apsq_expert_matmul", "baseline_expert_matmul"):
         assert _build.launch_counts[name] == before[name] + 1
+    _expert_bit_exact_once_and_again(x.to(cuda), w.to(cuda), ex.to(cuda), gs)
+
+
+def _expert_bit_exact_once_and_again(x, w, ex, gs):
+    """Both expert kernels on card tensors: bit-exact against their plain
+    versions on the card, bit-identical on a second call, one launch
+    count per call."""
+    before = dict(_build.launch_counts)
+    got = ops.apsq_expert_matmul_int8(x, w, ex, gs=gs)
+    again = ops.apsq_expert_matmul_int8(x, w, ex, gs=gs)
+    got_b = ops.baseline_expert_matmul_int8(x, w)
+    again_b = ops.baseline_expert_matmul_int8(x, w)
+    want = ref.apsq_expert_matmul_ref(x, w, ex, gs=gs)
+    want_b = ref.baseline_expert_matmul_ref(x, w)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and torch.equal(got, again)
+    assert torch.equal(got_b, want_b) and torch.equal(got_b, again_b)
+    for name in ("apsq_expert_matmul", "baseline_expert_matmul"):
+        assert _build.launch_counts[name] == before[name] + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("e,m,k,n,n_p,gs,empty,one_live", [
+    (8, 2, 256, 64, 8, 4, (1, 2, 5), (3,)), (4, 3, 45, 24, 4, 2, (0,), (2,)),
+    (3, 17, 256, 40, 8, 4, (1,), (2,)), (2, 1, 128, 16, 4, 2, (0, 1), ()),
+    (64, 2, 2048, 1024, 8, 4, tuple(range(0, 64, 3)), tuple(range(1, 64, 5))),
+])
+def test_expert_kernels_empty_and_one_live_experts(cuda, e, m, k, n, n_p, gs,
+                                                   empty, one_live):
+    """Experts whose rows are all zero (their blocks store zeros and read
+    no weights) beside experts with one live row, both layouts."""
+    g = torch.Generator(device=cuda).manual_seed(e * m + k + n)
+    x = torch.randint(-128, 128, (e, m, k), generator=g, device=cuda,
+                      dtype=torch.int8)
+    w = torch.randint(-128, 128, (e, k, n), generator=g, device=cuda,
+                      dtype=torch.int8)
+    x[list(empty)] = 0
+    for i in one_live:
+        x[i, :-1] = 0
+    for shape in ((e, n_p), (e, n_p, n)):
+        ex = torch.randint(-2, 20, shape, generator=g, device=cuda,
+                           dtype=torch.int32)
+        ex[list(empty)] = 32        # the one exponent whose zero code is -1
+        _expert_bit_exact_once_and_again(x, w, ex, gs)
+        assert not ops.apsq_expert_matmul_int8(x, w, ex, gs=gs)[
+            list(empty)].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("e,m,k,n", [(64, 2, 2048, 1024), (4, 3, 100, 40),
+                                     (2, 17, 256, 64)])
+def test_expert_kernels_4_byte_aligned_operands(cuda, e, m, k, n):
+    """Operands 4-byte but not 16-byte aligned take the byte loads."""
+    n_p, gs = 8, 4
+    g = torch.Generator(device=cuda).manual_seed(e * k + n)
+    views = []
+    for shape in ((e, m, k), (e, k, n)):
+        size = shape[0] * shape[1] * shape[2]
+        buf = torch.randint(-128, 128, (size + 16,), generator=g,
+                            device=cuda, dtype=torch.int8)
+        off = (4 - buf.data_ptr()) % 16
+        views.append(buf[off:off + size].view(shape))
+    x, w = views
+    assert x.data_ptr() % 16 == 4 and w.data_ptr() % 16 == 4
+    ex = torch.randint(0, 14, (e, n_p, n), generator=g, device=cuda,
+                       dtype=torch.int32)
+    _expert_bit_exact_once_and_again(x, w, ex, gs)
 
 
 @pytest.mark.cuda

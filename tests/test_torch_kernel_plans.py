@@ -32,6 +32,20 @@ Here, without a card:
   adversarial exponents, three K ranges per tile) and M in {1, 8, 16,
   17, 32, 128}; the APSQ plan covers every K row of every PSUM tile
   once, no slot crossing a tile's end.
+* The expert kernels' dataflow (``ops.expert_plan``'s grid of column
+  block x 16 rows x expert, the zero-block skip, the ring of 64-row
+  stages that never crosses a PSUM tile's end, the warps' column split
+  with its K permutation fed to ``mma.m16n8k32``, Algorithm 1's carry
+  form in registers at each tile's end) emulated in numpy is bit-exact
+  against the torch oracle and the JAX oracle backend's
+  ``int_expert_gemm``, APSQ and W8A8: the serving shapes cut in E, M in
+  {1, 2, 3, 9, 16, 17}, bk = 12, 37, 138, gs past 16, shift counts
+  >= 32, experts whose rows are all zero or have one live row.  The
+  plan is pure, covers every (expert, row, column) and every K row of
+  every tile once, and its stages fit one block's shared memory.
+* A zero code row gives 0 under both plain versions and the JAX oracle
+  at every exponent in [-40, 40], both layouts: the fact the skip rests
+  on.
 * ``baseline_matmul_ref`` is bit-exact against JAX's at K=5632 with
   extreme codes.
 """
@@ -44,11 +58,13 @@ import numpy as np
 import pytest
 import torch
 
+from repro.exec import get_backend as j_get_backend
 from repro.kernels.apsq_matmul import ref as jref
 from repro_torch.kernels.apsq_matmul import ops as gops
 from repro_torch.kernels.apsq_matmul import ref as gref
 from repro_torch.kernels.int8_kv_attention import ops as kops
 from repro_torch.kernels.int8_kv_attention import ref as kref
+from _hypothesis_compat import given, st
 from test_torch_kernels import GEMM_CASES, _exps
 
 KERNELS = Path(kops.__file__).resolve().parents[1]
@@ -642,6 +658,389 @@ def test_apsq_kernel_dataflow_emulation_bit_exact(m, k, n, n_p, gs, exps):
 def test_apsq_kernel_emulation_over_m_bit_exact(m, k, n, n_p, gs):
     x, w, e = _apsq_case(m, k, n, n_p, gs, "cols", 5000 + m + k + n)
     _check_apsq_emulation(x, w, e, gs)
+
+
+# ---------------------------------------------------------------------------
+# The expert kernels' dataflow, emulated: stream, Algorithm 1 in registers
+# ---------------------------------------------------------------------------
+
+def _source_ints(src: str, prefix: str) -> dict:
+    """``constexpr int PREFIX... = expr;`` of a CUDA source, evaluated in
+    order (an expression may name an earlier constant)."""
+    out = {}
+    for name, expr in re.findall(rf"constexpr int ({prefix}\w+) = ([^;]+);",
+                                 (KERNELS / src).read_text()):
+        out[name] = eval(expr, {}, dict(out))
+    return out
+
+
+XS = _source_ints("apsq_matmul/csrc/apsq_matmul.cu", "XS_")
+XS_BK = XS["XS_BK"]                  # K rows per stage of the expert ring
+SMEM_PER_BLOCK = 232448              # shared memory an H100 block can use
+
+
+def expert_stages(k, n_p):
+    """(PSUM tile, first K row, end) of each stage of an expert block's
+    walk, in order: ``max(1, ceil(bk / XS_BK))`` stages per tile, the
+    last cut at the tile's end (the kernel loads zeros past it)."""
+    bk = k // n_p
+    spt = max(1, math.ceil(bk / XS_BK))
+    return [(i, i * bk + j * XS_BK, min(i * bk + bk, i * bk + (j + 1) * XS_BK))
+            for i in range(n_p) for j in range(spt)]
+
+
+def expert_smem_bytes(plan, apsq=True):
+    """Dynamic shared memory of one expert block, as the launch sizes it:
+    the ring's stages of weights, activations and (APSQ) one int32
+    exponent per column."""
+    return plan.stages * (XS_BK * (plan.bn + XS["XS_WPAD"])
+                          + plan.bm * XS["XS_XROW"]
+                          + (4 * plan.bn if apsq else 0))
+
+
+def test_expert_kernel_plan_matches_source():
+    """The wrapper's rows per block are the kernel's, and every plan it
+    can make has a kernel instance."""
+    assert gops.XS_BM == XS["XS_BM"] and XS_BK % 32 == 0
+    text = (KERNELS / "apsq_matmul/csrc/apsq_matmul.cu").read_text()
+    for bn in (64, 128):
+        assert f"EXPERT_CASE({bn // 32}, {gops.EXPERT_STAGES})" in text
+
+
+def _expert_plan_checks(e, m, n, k, n_p):
+    plan = gops.expert_plan(e, m, n, k, n_p)
+    assert plan == gops.expert_plan(e, m, n, k, n_p)         # pure
+    assert plan.bn in (64, 128) and plan.bm == gops.XS_BM
+    assert plan.stages >= 3
+    assert expert_smem_bytes(plan) <= SMEM_PER_BLOCK
+    assert expert_smem_bytes(plan, apsq=False) \
+        < expert_smem_bytes(plan)
+    # the grid (column block, row block, expert) covers every output once
+    seen = np.zeros((e, m, n), np.int64)
+    for z in range(e):
+        for y in range(math.ceil(m / plan.bm)):
+            for x in range(math.ceil(n / plan.bn)):
+                seen[z, y * plan.bm:(y + 1) * plan.bm,
+                     x * plan.bn:(x + 1) * plan.bn] += 1
+    assert (seen == 1).all()
+    # the walk: every K row of every PSUM tile once, no stage across a
+    # tile's end, at most XS_BK rows a stage, in order
+    kp = n_p * math.ceil(k / n_p)                  # the wrapper's pad
+    bk = kp // n_p
+    rows = np.zeros(kp, np.int64)
+    walk = expert_stages(kp, n_p)
+    assert len(walk) == n_p * max(1, math.ceil(bk / XS_BK))
+    for i, kb, ke in walk:
+        assert i * bk <= kb <= ke <= (i + 1) * bk
+        assert ke - kb <= XS_BK
+        rows[kb:ke] += 1
+    assert (rows == 1).all()
+    assert [i for i, _, _ in walk] == sorted(i for i, _, _ in walk)
+    if e * math.ceil(n / 128) * math.ceil(m / plan.bm) >= 2 * gops.NUM_SMS:
+        assert plan.bn == 128                      # wide blocks still fill
+
+
+EXPERT_PLAN_SHAPES = [  # (E, M, K, N, n_p): OLMoE serving, then ragged
+    (64, 2, 2048, 1024, 8), (64, 2, 1024, 2048, 8), (64, 1, 2048, 1024, 8),
+    (64, 3, 2048, 1024, 8), (64, 16, 1024, 2048, 8), (64, 17, 2048, 1024, 1),
+    (8, 2, 2048, 1024, 8), (4, 3, 45, 24, 4), (2, 9, 1100, 70, 8),
+    (1, 1, 64, 32, 4), (3, 16, 480, 20, 24), (5, 2, 0, 40, 4),
+]
+
+
+@pytest.mark.parametrize("e,m,k,n,n_p", EXPERT_PLAN_SHAPES)
+def test_expert_plan_covers_every_output_and_k_row_once(e, m, k, n, n_p):
+    _expert_plan_checks(e, m, n, k, n_p)
+
+
+@given(st.integers(1, 80), st.integers(1, 40), st.integers(0, 3000),
+       st.integers(1, 700), st.integers(1, 32))
+def test_expert_plan_property(e, m, k, n, n_p):
+    _expert_plan_checks(e, m, n, k, n_p)
+
+
+def po2_of(e):
+    """The expert kernel's ``po2_of``: quant and deq at 2^e as (bias, sh,
+    dsh, dmask), elementwise over an int array of exponents."""
+    e = np.asarray(e, np.int64)
+    bias = np.where(e > 0, _shl(1, np.maximum(e, 1) - 1), 0)
+    sh = np.where(e <= 0, 0, np.minimum(e, 31))
+    dmask = np.where((e >= 0) & (e < 32), -1, 0)
+    return bias, sh, e & 31, dmask
+
+
+def quant_deq(v, po2):
+    """The expert kernel's ``quant_deq``: clip((v + bias) >> sh), then
+    (code << dsh) & dmask, on int32 values held in int64."""
+    bias, sh, dsh, dmask = po2
+    r = np.clip(_wrap(np.asarray(v, np.int64) + bias) >> sh, -128, 127)
+    return _wrap((r % 2**32) << dsh) & dmask
+
+
+def test_po2_shift_operands_equal_quant_deq_at_every_exponent():
+    """The kernel's three shift operands per exponent give the reference's
+    dequantize(quantize(v, e), e) bit for bit: e in [-40, 40] and the
+    int32 extremes, v over the int32 range's edges and random values."""
+    e = np.concatenate([np.arange(-40, 41), [-2**31, 2**31 - 1, 63, 64]])
+    rng = np.random.default_rng(32)
+    v = np.concatenate([[0, 1, -1, 127, -128, 2**31 - 1, -2**31, 2**30,
+                         -2**30 - 1], rng.integers(-2**31, 2**31, 300)])
+    ee, vv = np.meshgrid(e, v)
+    got = quant_deq(vv, po2_of(ee))
+    tv = torch.from_numpy(vv.astype(np.int32))
+    te = torch.from_numpy(ee.astype(np.int32))
+    want = gref.dequantize_psum(gref.quantize_psum(tv, te), te).numpy()
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, _shl(_quant(vv, ee), ee))
+    jv, je = jnp.asarray(vv.astype(np.int32)), jnp.asarray(ee.astype(np.int32))
+    np.testing.assert_array_equal(got, np.asarray(jref.dequantize_psum(
+        jref.quantize_psum(jv, je), je)))
+
+
+def mma_shared_a(acc, a_regs, b_regs):
+    """A batch of m16n8k32 mmas sharing one A: acc [B, 32, 4] += A @ B_b,
+    A from a_regs [32, 4], each B_b from b_regs [B, 32, 2]."""
+    A = np.zeros((16, 32), np.int64)
+    A[A_RC[..., 0], A_RC[..., 1]] = _bytes(a_regs)
+    B = np.zeros((b_regs.shape[0], 32, 8), np.int64)
+    B[:, B_RC[..., 0], B_RC[..., 1]] = _bytes(b_regs)
+    return acc + (A @ B)[:, C_RC[..., 0], C_RC[..., 1]]
+
+
+def xcol(v, sel):
+    """The expert kernel's xcol per lane: v [32, 4] words (16 bytes) ->
+    bytes t, t+4, t+8, t+12 (lane group t) as one word."""
+    out = np.zeros(32, np.uint32)
+    for t in range(4):
+        s = sel["PRMT_COL_BASE"] + t * sel["PRMT_COL_STEP"]
+        ln = TIG == t
+        out[ln] = byte_perm(byte_perm(v[ln, 0], v[ln, 1], s),
+                            byte_perm(v[ln, 2], v[ln, 3], s),
+                            sel["PRMT_HALF_LO"])
+    return out
+
+
+GARBAGE = np.int8(0x5a)        # shared bytes no load may read
+
+
+def emulate_expert_kernel(x, w, exps, gs, plan, stats=None, skip=True):
+    """``apsq_expert_matmul_int8`` (``exps`` given) or
+    ``baseline_expert_matmul_int8`` (``exps`` None) on the card, in
+    numpy: the wrapper's ragged-K pad, then ``expert_stream_kernel`` block
+    by block, all warps of a (expert, row block) at once.  ``stats``
+    counts skipped blocks and weight bytes staged; ``skip=False`` runs
+    the empty blocks through the walk too."""
+    sel = _selectors("apsq_matmul/csrc/apsq_matmul.cu")
+    apsq = exps is not None
+    n_p = exps.shape[1] if apsq else 1
+    pad = (-x.shape[2]) % n_p
+    x = np.pad(x, ((0, 0), (0, 0), (0, pad)))
+    w = np.pad(w, ((0, 0), (0, pad), (0, 0)))
+    E, M, K = x.shape
+    N = w.shape[2]
+    bk, last, gs = K // n_p, n_p - 1, min(gs, n_p)
+    S, BK, bn = plan.stages, XS_BK, plan.bn
+    walk = expert_stages(K, n_p)
+    spt = len(walk) // n_p
+    # every warp of the row: its first column (column block, warp)
+    wcol = (np.arange(math.ceil(N / bn))[:, None] * bn
+            + 32 * np.arange(bn // 32)[None]).reshape(-1)
+    lane_col = wcol[:, None] + 8 * TIG[None]               # [NW, 32]
+    # element (q, c) of a lane: row g + 8*(c//2), column + 4*(c%2) + q
+    qc_col = np.array([[4 * (c % 2) + q for c in range(4)]
+                       for q in range(4)])                  # [4, 4]
+    col_el = lane_col[:, None, :, None] + qc_col[None, :, None, :]
+    row_el = GRP[None, None, :, None] + 8 * (np.arange(4)[None, None, None]
+                                             // 2)          # [1, 1, 32, 4]
+    out = np.full((E, M, N), 0x13572468, np.int64)        # poison
+    stats = {} if stats is None else stats
+    stats.setdefault("skipped", 0)
+    stats.setdefault("weight_bytes", 0)
+    for e in range(E):
+        for m0 in range(0, M, plan.bm):
+            rows = min(plan.bm, M - m0)
+            if skip and not x[e, m0:m0 + rows].any():   # __syncthreads_or
+                out[e, m0:m0 + rows] = 0
+                stats["skipped"] += 1
+                continue
+            ring = [None] * S              # slot -> (stage, w, x, exps)
+            consumed = set()
+
+            def issue(it):
+                old = ring[it % S]
+                assert old is None or old[0] in consumed   # slot is free
+                i, kb, ke = walk[it]
+                est = None              # a tile's last stage: its exps
+                if apsq and (it + 1) % spt == 0:
+                    est = np.zeros(wcol.size // (bn // 32) * bn + 64,
+                                   np.int64)
+                    if exps.ndim == 3:          # per column, 0 past N
+                        est[:N] = exps[e, i]
+                    else:                       # every lane reads the one
+                        est[:] = exps[e, i]
+                wst = np.zeros((BK, wcol.size // (bn // 32) * bn + 64),
+                               np.int8)
+                hi = min(ke, K) - kb
+                wst[:hi, :N] = w[e, kb:kb + hi]
+                xst = np.full((plan.bm, BK), GARBAGE, np.int8)
+                xst[:rows] = 0
+                xst[:rows, :hi] = x[e, m0:m0 + rows, kb:kb + hi]
+                stats["weight_bytes"] += hi * N
+                ring[it % S] = (it, wst, xst, est)
+
+            for it in range(min(S - 1, len(walk))):              # prologue
+                issue(it)
+            acc = np.zeros((wcol.size, 4, 32, 4), np.int64)
+            carry = np.zeros_like(acc)
+            for it, (i, _, _) in enumerate(walk):
+                if it + S - 1 < len(walk):
+                    issue(it + S - 1)
+                tag, wst, xst, est = ring[it % S]
+                assert tag == it
+                for s in range(BK // 32):
+                    a = []
+                    for rr in (GRP, GRP + 8):      # rows g and g + 8
+                        live = (rr < rows)[:, None]
+                        run = [np.where(live, _words(np.ascontiguousarray(
+                            xst[np.minimum(rr, plan.bm - 1),
+                                32 * s + 16 * h:32 * s + 16 * h + 16]
+                            .reshape(32, 4, 4))), 0) for h in (0, 1)]
+                        a.append([xcol(r.astype(np.uint32), sel)
+                                  for r in run])
+                    a_regs = np.stack([a[0][0], a[1][0], a[0][1], a[1][1]],
+                                      -1)
+                    b = []
+                    for hh in (0, 1):
+                        r = [_words(np.ascontiguousarray(np.stack(
+                            [wst[32 * s + 16 * hh + TIG + 4 * ii,
+                                 wc + 4 * GRP + j]
+                             for j in range(4)], -1)))
+                             for ii in range(4) for wc in [wcol[:, None]]]
+                        b.append(transpose4x4(r, sel))   # [q] of [NW, 32]
+                    b_regs = np.stack([np.stack(b[0], 1), np.stack(b[1], 1)],
+                                      -1)                 # [NW, 4, 32, 2]
+                    acc = mma_shared_a(acc.reshape(-1, 32, 4), a_regs,
+                                       b_regs.reshape(-1, 32, 2)
+                                       ).reshape(acc.shape)
+                consumed.add(it)
+                if apsq and (it + 1) % spt == 0:        # tile i complete
+                    pe = po2_of(est[col_el])   # zeros past N
+                    p = _wrap(acc)
+                    if i % gs == 0 or i == last:    # group start or final
+                        step = quant_deq(_wrap(p + carry), pe)
+                    else:                           # a tail: its PSQ code
+                        step = _wrap(carry + quant_deq(p, pe))
+                    nc = 4 if rows > 8 else 2       # rows g + 8 held none
+                    carry[..., :nc] = step[..., :nc]
+                    acc = np.zeros_like(acc)
+            val = carry if apsq else _wrap(acc)
+            keep = (row_el < rows) & (col_el < N)
+            rr = np.broadcast_to(row_el, val.shape)[keep]
+            out[e, m0 + rr, np.broadcast_to(col_el, val.shape)[keep]] = \
+                val[keep]
+    assert (out != 0x13572468).all()                 # every output stored
+    return out.astype(np.int32)
+
+
+def _expert_case(e, m, k, n, n_p, layout, seed, zero=(), one_live=()):
+    """Random codes [E, M, K] @ [E, K, N], exponents in [-2, 19] (or an
+    explicit list for every expert), with the experts in ``zero`` all
+    zero and those in ``one_live`` with one nonzero row."""
+    rng = np.random.default_rng(seed)
+    x = rng.integers(-128, 128, (e, m, k)).astype(np.int8)
+    w = rng.integers(-128, 128, (e, k, n)).astype(np.int8)
+    for i in zero:
+        x[i] = 0
+    for i in one_live:
+        x[i] = 0
+        x[i, m - 1] = rng.integers(-128, 128, k)
+    if isinstance(layout, list):
+        ex = np.tile(np.asarray(layout, np.int32), (e, 1))
+    else:
+        shape = (e, n_p) if layout == "vec" else (e, n_p, n)
+        ex = rng.integers(-2, 20, shape).astype(np.int32)
+    return x, w, ex
+
+
+EXPERT_EMU_CASES = [  # (E, M, K, N, n_p, gs, layout, zero, one_live)
+    (2, 2, 2048, 1024, 8, 4, "cols", (), ()),       # OLMoE wg / wi, cut
+    (2, 3, 1024, 2048, 8, 4, "vec", (), ()),        # OLMoE wo, cut
+    (4, 1, 256, 64, 8, 4, "cols", (1,), ()),
+    (3, 2, 256, 72, 4, 2, "cols", (0, 2), ()),      # two empty experts
+    (4, 3, 192, 40, 4, 2, "vec", (1,), (2,)),
+    (2, 9, 320, 48, 8, 3, "cols", (), (1,)),
+    (3, 16, 256, 33, 8, 4, "cols", (), (0,)),
+    (2, 17, 192, 40, 4, 1, "vec", (), (1,)),        # two row blocks
+    (2, 3, 48, 24, 4, 2, "cols", (), ()),           # bk = 12
+    (2, 5, 148, 40, 4, 2, "cols", (), ()),          # bk = 37
+    (2, 9, 1100, 70, 8, 4, "cols", (), ()),         # bk = 138 (ragged K)
+    (2, 3, 480, 24, 24, 17, "cols", (), ()),        # gs > 16
+    (2, 2, 640, 16, 20, 20, "vec", (), ()),         # gs > 16, PSQ
+    (2, 4, 256, 16, 4, 2, [33, 1, 40, 2], (), ()),  # shift counts >= 32
+    (2, 4, 256, 16, 4, 1, [31, 32, 40, 0], (), (1,)),
+    (2, 2, 128, 16, 1, 1, "vec", (), ()),           # n_p = 1
+]
+
+
+@pytest.mark.parametrize("e,m,k,n,n_p,gs,layout,zero,one_live",
+                         EXPERT_EMU_CASES)
+def test_expert_kernel_dataflow_emulation_bit_exact(e, m, k, n, n_p, gs,
+                                                    layout, zero, one_live):
+    x, w, ex = _expert_case(e, m, k, n, n_p, layout, 6000 + e * m + k + n,
+                            zero, one_live)
+    tx, tw, te = map(torch.from_numpy, (x, w, ex))
+    want = gref.apsq_expert_matmul_ref(tx, tw, te, gs=gs).numpy()
+    np.testing.assert_array_equal(want, np.asarray(
+        j_get_backend("oracle").int_expert_gemm(
+            jnp.asarray(x), jnp.asarray(w), jnp.asarray(ex), gs=gs)))
+    want_b = gref.baseline_expert_matmul_ref(tx, tw).numpy()
+    plan = gops.expert_plan(e, m, n, k, n_p)
+    stats = {}
+    np.testing.assert_array_equal(
+        emulate_expert_kernel(x, w, ex, gs, plan, stats), want)
+    np.testing.assert_array_equal(
+        emulate_expert_kernel(x, w, None, 1, plan), want_b)
+    # the empty experts' blocks returned before reading a weight byte
+    blocks = e * math.ceil(m / plan.bm)
+    empty = sum(not x[i, r:r + plan.bm].any() for i in range(e)
+                for r in range(0, m, plan.bm))
+    assert stats["skipped"] == empty >= len(zero)
+    kp = k + (-k) % n_p
+    assert stats["weight_bytes"] == (blocks - empty) * kp * n
+    if empty or m <= 3:
+        # the skip is exact: the same bits walking the empty blocks, and
+        # the other column width walks the same
+        other = plan._replace(bn=192 - plan.bn)
+        np.testing.assert_array_equal(
+            emulate_expert_kernel(x, w, ex, gs, other, skip=False), want)
+
+
+@pytest.mark.parametrize("layout", ["vec", "cols"])
+def test_zero_code_rows_give_zero_under_every_exponent(layout):
+    """One expert per exponent in [-40, 40] (and random mixtures of them
+    per tile and column): an all-zero activation row gives 0 through
+    both plain versions and the JAX oracle, which is what lets the
+    kernels skip an empty expert."""
+    e_all, m, k, n, n_p = 81, 2, 24, 8, 4
+    rng = np.random.default_rng(81)
+    x = np.zeros((e_all, m, k), np.int8)
+    w = rng.integers(-128, 128, (e_all, k, n)).astype(np.int8)
+    v = np.arange(-40, 41, dtype=np.int32)
+    if layout == "vec":
+        ex = np.repeat(v[:, None], n_p, 1)
+        ex[1::2] = rng.integers(-40, 41, (e_all // 2, n_p))
+    else:
+        ex = np.repeat(np.repeat(v[:, None, None], n_p, 1), n, 2)
+        ex[1::2] = rng.integers(-40, 41, (e_all // 2, n_p, n))
+    tx, tw, te = map(torch.from_numpy, (x, w, ex))
+    for gs in (1, 2, n_p):
+        got = gref.apsq_expert_matmul_ref(tx, tw, te, gs=gs)
+        assert not got.any(), gs
+        assert not np.asarray(j_get_backend("oracle").int_expert_gemm(
+            jnp.asarray(x), jnp.asarray(w), jnp.asarray(ex), gs=gs)).any()
+    assert not gref.baseline_expert_matmul_ref(tx, tw).any()
+    assert not np.asarray(j_get_backend("oracle").int_expert_gemm(
+        jnp.asarray(x), jnp.asarray(w), None, gs=1)).any()
 
 
 # ---------------------------------------------------------------------------
