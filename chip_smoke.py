@@ -47,10 +47,10 @@ Phases (each exits non-zero on failure):
              the two devices; the integer GEMMs are exact on both).
   serve      the main path at full TinyLlama-1.1B width (22 layers, random
              weights from a seed, bf16): init_lm -> calibrate_model ->
-             PagedServingEngine.from_exported (mix2_ffn4 policy) -> run
-             16 requests (prompts 5-60, 16-32 new tokens, one with EOS);
-             a max_batch=1 engine on two of them must give the same greedy
-             tokens; logits finite.
+             export_quantized (mix2_ffn4 policy) -> PagedServingEngine
+             -> run 16 requests (prompts 5-60, 16-32 new tokens, one with
+             EOS); a max_batch=1 engine on two of them must give the same
+             greedy tokens; logits finite.
   w8a8       a full-width 2-layer model under the ffn_only policy, so the
              W8A8 baseline kernel serves the attention projections.
   moe_reference  the olmoe-smoke model, calibrated and exported on the
@@ -72,11 +72,39 @@ Phases (each exits non-zero on failure):
              so batched tokens are not held to single-stream here.
   moe_w8a8   OLMoE at full width cut to 2 layers under the uniform W8A8
              preset, so the W8A8 expert kernel serves the experts.
+  load       a JAX export read from disk without JAX: the committed
+             fixture ``tests/fixtures/jax_export_starcoder2_smoke``
+             (starcoder2-smoke, tied head, stacked units, mix2_ffn4,
+             written by the JAX package's checkpoint.save) restored by
+             ``repro_torch.checkpoint.restore``.  The port's ``oracle``
+             engine on the CPU gives the greedy tokens the JAX oracle
+             engine recorded in its manifest; every deployed GEMM of the
+             tree on the card (APSQ, and the tied head's W8A8) is
+             bit-exact against its plain version; a ``cuda`` engine gives
+             the recorded tokens (the smallest top-2 logit margin along
+             them is reported); last-chunk logits card vs CPU within
+             rtol/atol 1e-3.
+  sc2_serve  full-width StarCoder2-15B (40 layers, d=6144, 48/4 heads at
+             hd=128, GELU d_ff=24576, LayerNorm, vocab 49152, random bf16
+             weights from a seed; the allocator's cache is emptied
+             first): init_lm -> calibrate_model ->
+             export_quantized -> del the float params ->
+             PagedServingEngine (mix2_ffn4, 8 slots, page 16, chunk 16,
+             horizon 8) -> run 8 requests (prompts 5-48, 8-16 new
+             tokens, one with an EOS at a step >= 1); a max_batch=1
+             engine on two of them gives the same greedy tokens; logits
+             finite.  Records each stage's seconds and the peak memory.
+  dense_2l   ChatGLM3-6B (RoPE on half the head, GQA group 16) and
+             DeepSeek-7B (MHA, float head at vocab 102400) at full width
+             cut to 2 layers (mix2_ffn4): 4 requests on 4 slots, and a
+             max_batch=1 engine on one of them gives the same tokens.
 
-The main path runs in four configurations, each its own path: ``serve``
-(mix2_ffn4: every layer APSQ), ``w8a8`` (ffn_only: W8A8 attention
-projections), ``moe_serve`` (OLMoE, mix2_ffn4) and ``moe_w8a8`` (OLMoE,
-W8A8).  Launch counts are zeroed just before each and read just after;
+The main path runs in seven configurations, each its own path:
+``serve`` (mix2_ffn4: every layer APSQ), ``w8a8`` (ffn_only: W8A8
+attention projections), ``moe_serve`` (OLMoE, mix2_ffn4), ``moe_w8a8``
+(OLMoE, W8A8), ``load`` (the restored JAX export), ``sc2_serve`` and
+``dense_2l``'s two models.  Launch counts are zeroed just before each
+and read just after;
 every kernel of each path must have launched.  The line before the
 last holds the per-kernel record: ``launches`` is the count of the path
 named in ``path``, ``launches_by_path`` each path's own count (never a
@@ -101,7 +129,9 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 INT8_OPS_PER_S = 1979e12       # H100 SXM int8 tensor cores, dense
 F32_OPS_PER_S = 67e12          # H100 SXM float32 outside the tensor cores
 PHASES = ("build", "kernels", "reference", "serve", "w8a8", "moe_reference",
-          "moe_serve", "moe_w8a8")
+          "moe_serve", "moe_w8a8", "load", "sc2_serve", "dense_2l")
+FIXTURE = os.path.join(ROOT, "tests", "fixtures",
+                       "jax_export_starcoder2_smoke")
 NO_BATCHED_INT8_MM = ("none: PyTorch has no single call for a batched "
                       "INT8 GEMM (torch._int_mm is 2-D and needs M > 16)")
 
@@ -140,6 +170,12 @@ PATH_KERNELS = {
     "moe_serve": ("apsq_matmul", "apsq_expert_matmul", "int8_kv_attention"),
     "moe_w8a8": ("baseline_matmul", "baseline_expert_matmul",
                  "int8_kv_attention"),
+    "load": ("apsq_matmul", "baseline_matmul", "int8_kv_attention"),
+    "sc2_serve": ("apsq_matmul", "apsq_matmul_m1", "int8_kv_attention"),
+    "dense_2l/chatglm3-6b": ("apsq_matmul", "apsq_matmul_m1",
+                             "int8_kv_attention"),
+    "dense_2l/deepseek-7b": ("apsq_matmul", "apsq_matmul_m1",
+                             "int8_kv_attention"),
 }
 
 
@@ -402,6 +438,22 @@ def gemm_checks(torch, records: dict) -> list:
                 records["baseline_matmul"] = dict(
                     row["baseline_matmul"], shape=f"M={m} K={k} N={n}")
             del ws
+    # StarCoder2-15B's FFN bodies under mix2_ffn4 (n_p=8 gs=4), about
+    # 150 MB of weights each: decode at 8 slots, and the wo at M=1
+    for m, k, n, label in ((8, 6144, 24576, "ffn_wi"),
+                           (8, 24576, 6144, "ffn_wo"),
+                           (1, 24576, 6144, "ffn_wo")):
+        x, ws, exps, gs = apsq_case(torch, ref, gen, dev, m, k, n)
+        n_p = exps.shape[0]
+        name = "apsq_matmul_m1" if m == 1 else "apsq_matmul"
+        rec = apsq_rec(torch, ops, ref, x, ws, exps, gs, errors)
+        rec["share"] = rec["bound_ms"] / rec["ms"] if rec["ms"] else None
+        rec["plan"] = list(ops.apsq_plan(m, n, k, n_p))
+        rows.append({"M": m, "K": k, "N": n, "n_p": n_p, "gs": gs,
+                     "model": f"starcoder2-15b {label}", name: rec})
+        records[name][f"at_sc2_{label}_m{m}"] = dict(
+            rec, shape=f"M={m} K={k} N={n} n_p={n_p} gs={gs}")
+        del ws
     # torch._int_mm refuses M <= 16, so the baseline's library yardstick
     # starts at M = 17; the kernel, its plain version and _int_mm run on
     # the same inputs (M = 32 is the smallest multiple of 8 it takes)
@@ -708,21 +760,31 @@ def make_requests(np, rng, n, vocab, lo_p, hi_p, lo_n, hi_n, Request):
             for i in range(n)]
 
 
-def top2_margin(torch, params, cfg, tokens, device) -> float:
-    """Top-2 logit margin of the next token after ``tokens`` (prefill in
-    one-token steps over a fresh single-slot paged cache)."""
-    from repro_torch.models import forward_paged_chunk, init_paged_decode_state
-    n = len(tokens)
-    st = init_paged_decode_state(cfg, 1, page_size=16, n_pages=n // 16 + 2,
-                                 device=device)
-    table = torch.arange(1, n // 16 + 2, dtype=torch.int32,
-                         device=device)[None]
-    for t in range(n):
+def top2_margins(torch, params, cfg, prompt, out, dev,
+                 chunk: int = 1) -> list:
+    """Top-2 logit margin of the next token at the end of ``prompt`` and
+    after each token of ``out`` (teacher-forced): len(out) + 1 margins.
+    One slot over a fresh paged cache; the prompt goes in ``chunk``-token
+    pieces, ``out`` one token at a time."""
+    from repro_torch.models import forward_paged_chunk, \
+        init_paged_decode_state
+    toks = [int(t) for t in prompt] + [int(t) for t in out]
+    pages = len(toks) // 4 + 2
+    st = init_paged_decode_state(cfg, 1, page_size=4, n_pages=pages + 1,
+                                 device=dev)
+    table = torch.arange(1, pages + 1, dtype=torch.int32, device=dev)[None]
+    pieces = [chunk] * (len(prompt) // chunk) + (
+        [len(prompt) % chunk] if len(prompt) % chunk else []) + [1] * len(out)
+    margins, done = [], 0
+    for c in pieces:
         lg, st = forward_paged_chunk(
-            params, cfg, st, torch.tensor([[int(tokens[t])]], device=device),
-            torch.tensor([t], dtype=torch.int32, device=device), table)
-    top = torch.topk(lg[0, -1].float(), 2).values
-    return float(top[0] - top[1])
+            params, cfg, st, torch.tensor([toks[done:done + c]], device=dev),
+            torch.tensor([done], dtype=torch.int32, device=dev), table)
+        done += c
+        if done >= len(prompt):
+            top = torch.topk(lg[0, -1].float(), 2).values
+            margins.append(float(top[0] - top[1]))
+    return margins
 
 
 def phase_reference(torch, np, smoke_config):
@@ -862,9 +924,48 @@ def missing_launches(path: str, launches: dict) -> list:
             for k in PATH_KERNELS[path] if launches.get(k, 0) == 0]
 
 
+def batched_vs_single(torch, deploy, cfg, reqs, outs, single, step,
+                      dev) -> list:
+    """Problems where the batched engine's tokens ``outs`` leave the
+    single-stream ones: request 0 must stop at its EOS (step ``step``),
+    request 1 must match (a mismatch reports the single stream's top-2
+    logit margin there)."""
+    problems = []
+    if outs.get(0) != single[0][:step + 1]:
+        problems.append(f"EOS stream: {outs.get(0)} vs expected "
+                        f"{single[0][:step + 1]}")
+    if outs.get(1) != single[1]:
+        a, b = outs.get(1, []), single[1]
+        i = next((j for j in range(min(len(a), len(b))) if a[j] != b[j]),
+                 min(len(a), len(b)))
+        margin = top2_margins(torch, deploy, cfg,
+                              list(reqs[1].tokens) + b[:i], [], dev)[0]
+        problems.append(f"batched != single-stream for request 1 at step "
+                        f"{i}: {a[i:i + 1]} vs {b[i:i + 1]}, single-stream "
+                        f"top-2 logit margin {margin}")
+    return problems
+
+
+def logits_check(torch, deploy, cfg, tokens, dev, info: dict) -> list:
+    """One 16-token chunk of ``tokens`` on a fresh slot: the last row's
+    logits must be finite and of shape [1, 1, vocab]."""
+    from repro_torch.models import forward_paged_chunk, \
+        init_paged_decode_state
+    st = init_paged_decode_state(cfg, 1, page_size=16, n_pages=3, device=dev)
+    lg, _ = forward_paged_chunk(
+        deploy, cfg, st, torch.tensor(tokens[None][:, :16], device=dev),
+        torch.zeros(1, dtype=torch.int32, device=dev),
+        torch.tensor([[1, 2]], dtype=torch.int32, device=dev))
+    info["logits_finite"] = bool(torch.isfinite(lg).all())
+    if not info["logits_finite"] or list(lg.shape) != [1, 1, cfg.vocab]:
+        return [f"logits {list(lg.shape)} finite={info['logits_finite']}"]
+    return []
+
+
 def phase_serve(torch, np, _build, cfg, dev, profile: bool = False):
     from repro_torch.models import init_lm
-    from repro_torch.quant import calibrate_model, policy_presets
+    from repro_torch.quant import calibrate_model, export_quantized, \
+        policy_presets
     from repro_torch.serving import PagedServingEngine, Request
     cfg = cfg.with_quant(policy_presets()["mix2_ffn4"])
     rng = np.random.default_rng(12)
@@ -883,51 +984,23 @@ def phase_serve(torch, np, _build, cfg, dev, profile: bool = False):
     pages = math.ceil((60 + 32) / 16)
     kw = dict(page_size=16, prefill_chunk=16, decode_horizon=8,
               max_pages_per_slot=pages)
-    # single-stream reference for requests 0 and 1 (request 0 probes EOS)
     t0 = time.perf_counter()
-    solo = PagedServingEngine.from_exported(params, cfg, max_batch=1,
-                                            n_pages=pages + 1, **kw)
+    deploy, _ = export_quantized(params)
+    sync(torch, dev)
     info["export_s"] = time.perf_counter() - t0
-    single = {}
-    for r in reqs[:2]:
-        probe = Request(uid=r.uid, tokens=r.tokens,
-                        max_new_tokens=r.max_new_tokens)
-        solo.run([probe])
-        single[r.uid] = probe.out
-    out0 = single[0]
-    step = next(i for i in range(1, len(out0)) if out0[i] not in out0[:i])
-    reqs[0].eos_token = out0[step]
-    eng = PagedServingEngine(solo.params, cfg, max_batch=8,
+    # single-stream reference for requests 0 and 1 (request 0 probes EOS)
+    single, step = single_stream_check(torch, deploy, cfg, reqs[:2], kw,
+                                       dev, probe_eos=True)
+    eng = PagedServingEngine(deploy, cfg, max_batch=8,
                              n_pages=8 * pages + 1, **kw)
     done = serve_all(torch, _build, dev, eng, reqs, profile, info)
-    outs = {r.uid: r.out for r in done}
-    n_tok = info["generated_tokens"]
     problems = []
     if len(done) != 16:
         problems.append(f"{len(done)} of 16 requests finished")
-    if outs.get(0) != out0[:step + 1]:
-        problems.append(f"EOS stream: {outs.get(0)} vs expected "
-                        f"{out0[:step + 1]}")
-    if outs.get(1) != single[1]:
-        a, b = outs.get(1, []), single[1]
-        i = next((j for j in range(min(len(a), len(b))) if a[j] != b[j]),
-                 min(len(a), len(b)))
-        margin = top2_margin(torch, eng.params, cfg,
-                             list(reqs[1].tokens) + b[:i], dev)
-        problems.append(f"batched != single-stream for request 1 at step "
-                        f"{i}: {a[i:i + 1]} vs {b[i:i + 1]}, single-stream "
-                        f"top-2 logit margin {margin}")
-    from repro_torch.models import forward_paged_chunk, init_paged_decode_state
-    st = init_paged_decode_state(cfg, 1, page_size=16, n_pages=3, device=dev)
-    lg, _ = forward_paged_chunk(
-        eng.params, cfg, st, torch.tensor(reqs[2].tokens[None][:, :16],
-                                          device=dev),
-        torch.zeros(1, dtype=torch.int32, device=dev),
-        torch.tensor([[1, 2]], dtype=torch.int32, device=dev))
-    info["logits_finite"] = bool(torch.isfinite(lg).all())
-    if not info["logits_finite"] or list(lg.shape) != [1, 1, cfg.vocab]:
-        problems.append(f"logits {list(lg.shape)} finite="
-                        f"{info['logits_finite']}")
+    problems += batched_vs_single(torch, deploy, cfg, reqs,
+                                  {r.uid: r.out for r in done}, single, step,
+                                  dev)
+    problems += logits_check(torch, deploy, cfg, reqs[2].tokens, dev, info)
     problems += missing_launches("serve", info["launches"])
     return info, problems
 
@@ -971,8 +1044,7 @@ def phase_moe_serve(torch, np, _build, cfg, dev, profile: bool = False):
     """Full OLMoE-1B-7B: init -> calibrate -> export -> serve 16
     requests on 8 slots; then a cuda engine and an oracle engine on the
     card serve 4 of them with the same params and max_batch."""
-    from repro_torch.models import forward_paged_chunk, init_lm, \
-        init_paged_decode_state
+    from repro_torch.models import init_lm
     from repro_torch.quant import calibrate_model, export_quantized, \
         policy_presets
     from repro_torch.serving import PagedServingEngine, Request
@@ -1009,16 +1081,7 @@ def phase_moe_serve(torch, np, _build, cfg, dev, profile: bool = False):
     problems = missing_launches("moe_serve", info["launches"])
     if len(done) != 16:
         problems.append(f"{len(done)} of 16 requests finished")
-    st = init_paged_decode_state(cfg, 1, page_size=16, n_pages=3, device=dev)
-    lg, _ = forward_paged_chunk(
-        deploy, cfg, st, torch.tensor(reqs[2].tokens[None][:, :16],
-                                      device=dev),
-        torch.zeros(1, dtype=torch.int32, device=dev),
-        torch.tensor([[1, 2]], dtype=torch.int32, device=dev))
-    info["logits_finite"] = bool(torch.isfinite(lg).all())
-    if not info["logits_finite"] or list(lg.shape) != [1, 1, cfg.vocab]:
-        problems.append(f"logits {list(lg.shape)} finite="
-                        f"{info['logits_finite']}")
+    problems += logits_check(torch, deploy, cfg, reqs[2].tokens, dev, info)
     # Engines on the card, 4 requests, 8 slots, same params.  Held to
     # equal greedy tokens: the CUDA GEMM kernels with the plain attention
     # against the oracle (the integer kernels are exact, so every float
@@ -1139,6 +1202,265 @@ def phase_moe_w8a8(torch, np, _build, cfg, dev):
     return info, problems
 
 
+def release(torch) -> None:
+    """Free what the last phase left on the card and restart the peak
+    count, so the next phase's peak memory is its own
+    (``max_memory_allocated`` does not count the allocator's cache, which
+    stays for the next phase)."""
+    import gc
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+
+
+def deployed_gemm_checks(torch, tree, errors: list) -> int:
+    """Every deployed GEMM of ``tree`` (on the card) on random activation
+    codes at M = 3 and 8, against its plain version on the same codes;
+    returns how many layers were held."""
+    from repro_torch.core import DeployedQuantState, psum_group_size
+    from repro_torch.kernels.apsq_matmul import ops, ref
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    n = 0
+
+    def walk(node, path):
+        nonlocal n
+        if isinstance(node, dict):
+            for k, v in node.items():
+                walk(v, f"{path}.{k}" if path else k)
+            return
+        if not isinstance(node, DeployedQuantState):
+            return
+        n += 1
+        w = node.w_codes
+        for m in (3, 8):
+            x = torch.randint(-128, 128, (m, w.shape[0]), generator=gen,
+                              device="cuda", dtype=torch.int8)
+            if node.psum_exps is None:
+                got = ops.baseline_matmul_int8(x, w)
+                want = ref.baseline_matmul_ref(x, w)
+            else:
+                n_p = int(node.psum_exps.shape[0])
+                gs = psum_group_size(node.spec, n_p)
+                got = ops.apsq_matmul_int8(x, w, node.psum_exps, gs=gs)
+                want = ref.apsq_matmul_ref(x, w, node.psum_exps, n_p=n_p,
+                                           gs=gs)
+            if not torch.equal(got, want):
+                errors.append(f"deployed {path} at M={m}: max|err|="
+                              f"{int((got.long() - want.long()).abs().max())}")
+
+    walk(tree, "")
+    torch.cuda.synchronize()
+    return n
+
+
+def phase_load(torch, np, _build, dev):
+    """The committed JAX export, restored without JAX and served."""
+    from repro_torch.checkpoint import restore
+    from repro_torch.configs import get_smoke
+    from repro_torch.models import forward_paged_chunk, \
+        init_paged_decode_state
+    from repro_torch.serving import PagedServingEngine, Request
+    problems = []
+    t0 = time.perf_counter()
+    tree_cpu, manifest = restore(FIXTURE, device="cpu")
+    tree, _ = restore(FIXTURE)                  # device=None: the card
+    info = {"restore_s": time.perf_counter() - t0,
+            "leaves": len(manifest["leaves"])}
+    extra = manifest["extra"]
+    cfg = get_smoke(extra["arch"]).scaled(
+        tie_embeddings=extra["tie_embeddings"])
+    kw = {k: v for k, v in extra["engine"].items() if k != "backend"}
+    want = {r["uid"]: r["out"] for r in extra["requests"]}
+
+    def run(params, backend):
+        done = PagedServingEngine(params, cfg, backend=backend, **kw).run([
+            Request(uid=r["uid"], tokens=np.array(r["tokens"], np.int32),
+                    max_new_tokens=r["max_new_tokens"])
+            for r in extra["requests"]])
+        return {r.uid: r.out for r in done}, tokens_digest(done)
+
+    # (a) the port's oracle engine on the CPU
+    cpu_out, _ = run(tree_cpu, "oracle")
+    info["cpu_oracle_equals_jax"] = cpu_out == want
+    if cpu_out != want:
+        problems.append(f"CPU oracle engine {cpu_out} != JAX {want}")
+    # (b) every deployed GEMM on the card against its plain version
+    info["deployed_gemms_held"] = deployed_gemm_checks(torch, tree,
+                                                       problems)
+    # (c) the cuda engine, the path's zeroed run
+    _build.reset_launch_counts()
+    cuda_out, info["tokens_sha256"] = run(tree, "cuda")
+    sync(torch, dev)
+    info["launches"] = dict(_build.launch_counts)
+    info["cuda_equals_jax"] = cuda_out == want
+    if cuda_out != want:
+        problems.append(f"cuda engine {cuda_out} != JAX {want}: first "
+                        f"divergence {first_divergence(cuda_out, want)}")
+    info["min_top2_margin"] = min(
+        m for r in extra["requests"]
+        for m in top2_margins(torch, tree, cfg, r["tokens"], r["out"], dev,
+                              kw["prefill_chunk"])[:-1])
+    # (d) last-chunk logits of the longest prompt, card vs CPU
+    toks = max((r["tokens"] for r in extra["requests"]), key=len)
+    chunks = [kw["prefill_chunk"]] * (len(toks) // kw["prefill_chunk"])
+    if len(toks) % kw["prefill_chunk"]:
+        chunks.append(len(toks) % kw["prefill_chunk"])
+    out = {}
+    for d, params in (("cpu", tree_cpu), ("cuda", tree)):
+        st = init_paged_decode_state(cfg, 1, page_size=kw["page_size"],
+                                     n_pages=16, device=d)
+        table = torch.arange(1, 16, dtype=torch.int32, device=d)[None]
+        done = 0
+        for c in chunks:
+            lg, st = forward_paged_chunk(
+                params, cfg, st, torch.tensor([toks[done:done + c]],
+                                              device=d),
+                torch.tensor([done], dtype=torch.int32, device=d), table)
+            done += c
+        out[d] = lg.float().cpu()
+    info["logits_max_abs_err"] = float((out["cpu"] - out["cuda"]).abs().max())
+    if not torch.allclose(out["cuda"], out["cpu"], rtol=1e-3, atol=1e-3):
+        problems.append(f"card vs CPU logits differ by "
+                        f"{info['logits_max_abs_err']}")
+    problems += missing_launches("load", info["launches"])
+    return info, problems
+
+
+def single_stream_check(torch, deploy, cfg, reqs, kw, dev, probe_eos: bool):
+    """Serve ``reqs`` one at a time on a max_batch=1 engine; with
+    ``probe_eos`` the first request gets as EOS a token it first emits
+    at a step >= 1.  Returns {uid: tokens} and the EOS step (or None)."""
+    from repro_torch.serving import PagedServingEngine, Request
+    solo = PagedServingEngine(deploy, cfg, max_batch=1,
+                              n_pages=kw["max_pages_per_slot"] + 1, **kw)
+    single = {}
+    for r in reqs:
+        probe = Request(uid=r.uid, tokens=r.tokens,
+                        max_new_tokens=r.max_new_tokens)
+        solo.run([probe])
+        single[r.uid] = probe.out
+    step = None
+    if probe_eos:
+        out0 = single[reqs[0].uid]
+        step = next(i for i in range(1, len(out0)) if out0[i] not in out0[:i])
+        reqs[0].eos_token = out0[step]
+    sync(torch, dev)
+    return single, step
+
+
+def phase_sc2_serve(torch, np, _build, cfg, dev, profile: bool = False):
+    """Full StarCoder2-15B: init -> calibrate -> export -> serve 8
+    requests on 8 slots, the float params dropped after export."""
+    from repro_torch.models import init_lm
+    from repro_torch.quant import calibrate_model, export_quantized, \
+        policy_presets
+    from repro_torch.serving import PagedServingEngine, Request
+    cfg = cfg.with_quant(policy_presets()["mix2_ffn4"])
+    rng = np.random.default_rng(31)
+    info = {}
+    torch.cuda.empty_cache()        # 15 B parameters: the card to itself
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    params = init_lm(cfg, seed=0, device=dev)
+    sync(torch, dev)
+    info["init_s"] = time.perf_counter() - t0
+    info["params_gb"] = sum(t.numel() * t.element_size() for t in
+                            iter_tensors(params)) / 1e9
+    t0 = time.perf_counter()
+    params = calibrate_model(params, cfg, {
+        "tokens": rng.integers(0, cfg.vocab, size=(4, 64))})
+    sync(torch, dev)
+    info["calibrate_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    deploy, report = export_quantized(params)
+    sync(torch, dev)
+    info["export_s"] = time.perf_counter() - t0
+    info["peak_mem_export_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del params                      # the bf16 weights go; the codes stay
+    release(torch)
+    info["int8_gb"] = sum(r["int8_bytes"] * r["count"]
+                          for r in report.values()) / 1e9
+    reqs = make_requests(np, rng, 8, cfg.vocab, 5, 48, 8, 16, Request)
+    pages = math.ceil((48 + 16) / 16)
+    kw = dict(page_size=16, prefill_chunk=16, decode_horizon=8,
+              max_pages_per_slot=pages)
+    t0 = time.perf_counter()
+    single, step = single_stream_check(torch, deploy, cfg, reqs[:2], kw,
+                                       dev, probe_eos=True)
+    info["single_stream_s"] = time.perf_counter() - t0
+    eng = PagedServingEngine(deploy, cfg, max_batch=8,
+                             n_pages=8 * pages + 1, **kw)
+    done = serve_all(torch, _build, dev, eng, reqs, profile, info)
+    info["peak_mem_gb"] = max(info["peak_mem_gb"], info["peak_mem_export_gb"])
+    problems = []
+    if len(done) != 8:
+        problems.append(f"{len(done)} of 8 requests finished")
+    problems += batched_vs_single(torch, deploy, cfg, reqs,
+                                  {r.uid: r.out for r in done}, single, step,
+                                  dev)
+    problems += logits_check(torch, deploy, cfg, reqs[2].tokens, dev, info)
+    problems += missing_launches("sc2_serve", info["launches"])
+    return info, problems
+
+
+def iter_tensors(tree):
+    import dataclasses
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from iter_tensors(v)
+    elif dataclasses.is_dataclass(tree):
+        for f in dataclasses.fields(tree):
+            yield from iter_tensors(getattr(tree, f.name))
+    elif hasattr(tree, "numel"):
+        yield tree
+
+
+def phase_dense_2l(torch, np, _build, configs, dev):
+    """ChatGLM3-6B and DeepSeek-7B at full width, 2 layers, mix2_ffn4:
+    4 requests on 4 slots, batched == single-stream for one of them.
+    Each model is its own path (launch counts zeroed per model)."""
+    from repro_torch.models import init_lm
+    from repro_torch.quant import calibrate_model, export_quantized, \
+        policy_presets
+    from repro_torch.serving import PagedServingEngine, Request
+    info, problems, paths = {}, [], {}
+    for seed, full in enumerate(configs):
+        cfg = full.scaled(n_layers=2).with_quant(
+            policy_presets()["mix2_ffn4"])
+        rng = np.random.default_rng(40 + seed)
+        _build.reset_launch_counts()
+        params = init_lm(cfg, seed=seed, device=dev)
+        params = calibrate_model(params, cfg, {
+            "tokens": rng.integers(0, cfg.vocab, size=(2, 32))})
+        deploy, _ = export_quantized(params)
+        del params
+        reqs = make_requests(np, rng, 4, cfg.vocab, 3, 40, 8, 16, Request)
+        kw = dict(page_size=16, prefill_chunk=16, decode_horizon=4,
+                  max_pages_per_slot=4)
+        single, _ = single_stream_check(torch, deploy, cfg, reqs[:1], kw,
+                                        dev, probe_eos=False)
+        done = PagedServingEngine(deploy, cfg, max_batch=4,
+                                  n_pages=4 * 4 + 1, **kw).run(reqs)
+        sync(torch, dev)
+        path = f"dense_2l/{full.name}"
+        paths[path] = dict(_build.launch_counts)
+        outs = {r.uid: r.out for r in done}
+        info[full.name] = {
+            "requests": len(done), "tokens_sha256": tokens_digest(done),
+            "generated_tokens": sum(len(r.out) for r in done),
+            "batched_equals_single": outs.get(0) == single[0],
+            "launches": paths[path]}
+        if len(done) != 4:
+            problems.append(f"{full.name}: {len(done)} of 4 requests")
+        if outs.get(0) != single[0]:
+            problems.append(f"{full.name}: batched {outs.get(0)} != "
+                            f"single-stream {single[0]}")
+        problems += missing_launches(path, paths[path])
+        del deploy
+        release(torch)
+    info["paths"] = paths
+    return info, problems
+
+
 # ---------------------------------------------------------------------------
 
 def main() -> int:
@@ -1146,8 +1468,9 @@ def main() -> int:
     ap.add_argument("--phases", default=",".join(PHASES),
                     help="comma-separated subset of " + ",".join(PHASES))
     ap.add_argument("--profile", action="store_true",
-                    help="trace one heartbeat of the serve and moe_serve "
-                         "phases' batched engines with torch.profiler")
+                    help="trace one heartbeat of the serve, moe_serve and "
+                         "sc2_serve phases' batched engines with "
+                         "torch.profiler")
     args = ap.parse_args()
     phases = [p for p in args.phases.split(",") if p]
     for p in phases:
@@ -1164,7 +1487,8 @@ def main() -> int:
     if not os.path.isdir(os.path.join(src, "repro_torch")):
         fail(f"{src}/repro_torch not found: run from a checkout of the repo")
     sys.path.insert(0, src)
-    from repro_torch.configs import olmoe_1b_7b, tinyllama_1_1b
+    from repro_torch.configs import (chatglm3_6b, deepseek_7b, olmoe_1b_7b,
+                                     starcoder2_15b, tinyllama_1_1b)
     from repro_torch.kernels import _build
     cuda = torch.device("cuda")
 
@@ -1213,8 +1537,20 @@ def main() -> int:
         elif phase == "moe_w8a8":
             info, problems = phase_moe_w8a8(torch, np, _build,
                                             olmoe_1b_7b.CONFIG, cuda)
+        elif phase == "load":
+            info, problems = phase_load(torch, np, _build, cuda)
+        elif phase == "sc2_serve":
+            info, problems = phase_sc2_serve(torch, np, _build,
+                                             starcoder2_15b.CONFIG, cuda,
+                                             profile=args.profile)
+        elif phase == "dense_2l":
+            info, problems = phase_dense_2l(
+                torch, np, _build, (chatglm3_6b.CONFIG, deepseek_7b.CONFIG),
+                cuda)
         if "launches" in info:
             launches[phase] = info["launches"]
+        launches.update(info.pop("paths", {}))
+        release(torch)
         dt = time.perf_counter() - t0
         detail[phase] = info
         short = {k: v for k, v in info.items()

@@ -18,7 +18,8 @@ Entry points run on ``cuda`` unless the caller passes ``device="cpu"``
 
 The port covers the production path of dense and MoE decoders:
 ``init_lm`` -> ``calibrate_model`` -> ``export_quantized`` ->
-``PagedServingEngine.from_exported`` -> ``run``.
+``PagedServingEngine.from_exported`` -> ``run``, and serves an export
+the JAX package saved: ``checkpoint.restore`` -> ``PagedServingEngine``.
 """
 from .device import resolve_device
 

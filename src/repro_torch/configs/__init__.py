@@ -4,7 +4,10 @@ from __future__ import annotations
 import importlib
 
 _MODULES = {"tinyllama-1.1b": "tinyllama_1_1b",
-            "olmoe-1b-7b": "olmoe_1b_7b"}
+            "olmoe-1b-7b": "olmoe_1b_7b",
+            "starcoder2-15b": "starcoder2_15b",
+            "chatglm3-6b": "chatglm3_6b",
+            "deepseek-7b": "deepseek_7b"}
 
 ARCH_NAMES = tuple(_MODULES)
 

@@ -61,6 +61,13 @@ class QuantConfig:
         return QuantConfig(enabled=True, psum=PsumQuantConfig("psq", n_p=n_p))
 
 
+def psum_group_size(spec: QuantConfig, n_p: int) -> int:
+    """The PSUM group size ``gs`` a layer with ``n_p`` PSUM tiles runs at,
+    in fake quant and on the integer path alike: all ``n_p`` tiles under
+    ``psq``, else the spec's ``gs``."""
+    return n_p if spec.psum.mode == "psq" else spec.psum.gs
+
+
 def effective_n_p(k: int, requested: int) -> int:
     """Largest divisor of K that is <= requested (K-tiling must be exact)."""
     n = max(1, min(requested, k))
@@ -185,9 +192,19 @@ def quant_dense(x: torch.Tensor, w: torch.Tensor | None, qp, *,
         y = xq @ wq
     else:
         n_p = qp.ap.shape[0]
-        gs = n_p if spec.psum.mode == "psq" else spec.psum.gs
-        y = apsq_matmul(xq, wq, qp.ap, n_p=n_p, gs=gs, bits=spec.psum.bits)
+        y = apsq_matmul(xq, wq, qp.ap, n_p=n_p, gs=psum_group_size(spec, n_p),
+                        bits=spec.psum.bits)
     return y.to(x.dtype)
+
+
+def tied_head_weight(table: torch.Tensor) -> torch.Tensor:
+    """The tied-embedding logits weight: table [V, ...D] -> [D, V] fp32.
+
+    The one definition that head calibration (``quant.qat``), integer
+    export (``quant.export``) and the fake-quant forward
+    (``models.model.logits_from_hidden``) share, so the calibrated
+    scales and the codes belong to the GEMM that runs."""
+    return table.reshape(table.shape[0], -1).T.float()
 
 
 def deployed_dense(x: torch.Tensor, dq: DeployedQuantState, *,

@@ -30,7 +30,8 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core import DeployedQuantState, QuantConfig, pow2, qrange
+from repro_torch.core import (DeployedQuantState, QuantConfig, pow2,
+                              psum_group_size, qrange)
 
 
 class ExecBackend:
@@ -174,8 +175,7 @@ def execute_gemm(dq: DeployedQuantState, x: torch.Tensor, *,
     xc = quantize_activations(x.reshape(-1, k), dq.ax_exp, spec.a_bits)
     gs = 1
     if dq.psum_exps is not None:
-        n_p = int(dq.psum_exps.shape[0])
-        gs = n_p if spec.psum.mode == "psq" else spec.psum.gs
+        gs = psum_group_size(spec, int(dq.psum_exps.shape[0]))
     y = backend.int_gemm(xc, dq.w_codes, dq.psum_exps, gs=gs)
     scale = pow2(dq.ax_exp + dq.aw_exp).to(y.device)
     return (y.float() * scale).to(x.dtype).reshape(out_shape)
@@ -202,8 +202,7 @@ def execute_expert_gemm(dq: DeployedQuantState, x: torch.Tensor, *,
     xc = quantize_activations(x.reshape(n_exp, -1, k), ax, spec.a_bits)
     gs = 1
     if dq.psum_exps is not None:
-        n_p = int(dq.psum_exps.shape[1])
-        gs = n_p if spec.psum.mode == "psq" else spec.psum.gs
+        gs = psum_group_size(spec, int(dq.psum_exps.shape[1]))
     y = backend.int_expert_gemm(xc, dq.w_codes, dq.psum_exps, gs=gs)
     aw = dq.aw_exp.reshape(n_exp, 1, -1)
     scale = pow2(ax + aw).to(y.device)

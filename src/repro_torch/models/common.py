@@ -49,18 +49,29 @@ def dense(p: Params, x: torch.Tensor, *, tap: list | None = None,
     return y.reshape(tuple(x.shape[:-1]) + tuple(w.shape[1:]))
 
 
-def init_norm(dim: int, dtype, *, device) -> Params:
-    return {"scale": torch.ones((dim,), dtype=dtype, device=device)}
+def init_norm(dim: int, dtype, kind: str = "rmsnorm", *, device) -> Params:
+    """Unit ``scale``; LayerNorm adds a zero ``bias``."""
+    p = {"scale": torch.ones((dim,), dtype=dtype, device=device)}
+    if kind == "layernorm":
+        p["bias"] = torch.zeros((dim,), dtype=dtype, device=device)
+    return p
 
 
 def apply_norm(p: Params, x: torch.Tensor, kind: str = "rmsnorm",
                eps: float = 1e-6) -> torch.Tensor:
-    """RMSNorm in float32, result in x's dtype."""
-    if kind != "rmsnorm":
-        raise NotImplementedError(f"norm {kind!r} is not ported yet")
+    """RMSNorm or LayerNorm in float32, result in x's dtype.  LayerNorm is
+    the JAX package's ``(x - mean) * rsqrt(var + eps) * scale + bias``
+    with the population variance and eps 1e-6 (not ``F.layer_norm``'s
+    1e-5)."""
     xf = x.float()
-    xf = xf * torch.rsqrt((xf * xf).mean(dim=-1, keepdim=True) + eps)
-    return (xf * p["scale"].float()).to(x.dtype)
+    if kind == "rmsnorm":
+        xf = xf * torch.rsqrt((xf * xf).mean(dim=-1, keepdim=True) + eps)
+        return (xf * p["scale"].float()).to(x.dtype)
+    if kind != "layernorm":
+        raise NotImplementedError(f"norm {kind!r} is not ported yet")
+    d = xf - xf.mean(dim=-1, keepdim=True)
+    xf = d * torch.rsqrt((d * d).mean(dim=-1, keepdim=True) + eps)
+    return (xf * p["scale"].float() + p["bias"].float()).to(x.dtype)
 
 
 def init_embedding(gen: torch.Generator, vocab: int, dim: int, dtype, *,
@@ -109,22 +120,32 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, *,
     return torch.cat([out, xp], dim=-1) if xp.shape[-1] else out
 
 
-def init_mlp(gen: torch.Generator, d_model: int, d_ff: int, dtype, *,
-             device, quant=None, name: str = "") -> Params:
+def init_mlp(gen: torch.Generator, d_model: int, d_ff: int, dtype,
+             kind: str = "swiglu", *, device, quant=None,
+             name: str = "") -> Params:
+    """SwiGLU: ``wi``, ``wg``, ``wo``; the GELU MLP (StarCoder2): ``wi``
+    and ``wo`` only."""
     kw = dict(device=device, quant=quant)
-    return {"wi": init_linear(gen, (d_model, d_ff), dtype, name=f"{name}.wi",
-                              **kw),
-            "wg": init_linear(gen, (d_model, d_ff), dtype, name=f"{name}.wg",
-                              **kw),
-            "wo": init_linear(gen, (d_ff, d_model), dtype, name=f"{name}.wo",
-                              **kw)}
+    p = {"wi": init_linear(gen, (d_model, d_ff), dtype, name=f"{name}.wi",
+                           **kw)}
+    if kind == "swiglu":
+        p["wg"] = init_linear(gen, (d_model, d_ff), dtype, name=f"{name}.wg",
+                              **kw)
+    p["wo"] = init_linear(gen, (d_ff, d_model), dtype, name=f"{name}.wo",
+                          **kw)
+    return p
 
 
 def apply_mlp(p: Params, x: torch.Tensor, kind: str = "swiglu", *,
               tap: list | None = None, backend=None) -> torch.Tensor:
-    """SwiGLU: wo(silu(wg x) * wi x)."""
-    if kind != "swiglu":
+    """SwiGLU: wo(silu(wg x) * wi x); GELU: wo(gelu(wi x)) with the tanh
+    approximation, ``jax.nn.gelu``'s default (torch's default is erf)."""
+    if kind == "swiglu":
+        h = (F.silu(dense(p["wg"], x, tap=tap, backend=backend))
+             * dense(p["wi"], x, tap=tap, backend=backend))
+    elif kind == "gelu":
+        h = F.gelu(dense(p["wi"], x, tap=tap, backend=backend),
+                   approximate="tanh")
+    else:
         raise NotImplementedError(f"mlp {kind!r} is not ported yet")
-    h = (F.silu(dense(p["wg"], x, tap=tap, backend=backend))
-         * dense(p["wi"], x, tap=tap, backend=backend))
     return dense(p["wo"], h, tap=tap, backend=backend)

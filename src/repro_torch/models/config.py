@@ -1,8 +1,8 @@
 """ModelConfig (port of ``repro/models/config.py``, the served fields).
 
 The JAX dataclass's field names, for the fields the served decoders read
-(``block_pattern=("attn",)``, rmsnorm, a SwiGLU or MoE channel mix,
-untied head).  The JAX
+(``block_pattern=("attn",)``, RMSNorm or LayerNorm, a SwiGLU, GELU or
+MoE channel mix, partial RoPE, a tied or untied head).  The JAX
 package's ``scan_layers`` has no counterpart: the port always holds
 units as ``{"u0": ..., "u1": ...}`` and loops over them.
 """
@@ -87,10 +87,12 @@ class ModelConfig:
 
     def check_ported(self):
         """Raise for what this slice of the port does not serve yet."""
-        if (self.block_pattern != ("attn",)
-                or self.mlp not in ("swiglu", "moe")
-                or self.norm != "rmsnorm" or self.tie_embeddings):
+        if (self.family not in ("dense", "moe")
+                or self.block_pattern != ("attn",)
+                or self.mlp not in ("swiglu", "gelu", "moe")
+                or self.norm not in ("rmsnorm", "layernorm")):
             raise NotImplementedError(
-                f"{self.name}: the port serves attn/rmsnorm decoders with a "
-                "SwiGLU or MoE channel mix and an untied head only so far")
+                f"{self.name}: the port serves decoder-only attention "
+                "stacks (RMSNorm or LayerNorm; SwiGLU, GELU or MoE channel "
+                "mix) of the dense and moe families only so far")
         return self

@@ -1,8 +1,11 @@
 """Decoder-only LM assembly (port of ``repro/models/model.py``: attention
-layers with a SwiGLU or MoE channel mix).
+layers with a SwiGLU, GELU or MoE channel mix).
 
 Params are nested dicts: ``{"embed": {"table"}, "units": {"u0": {"0":
-layer}, ...}, "final_norm": {"scale"}, "head": {"w"}}``.  The JAX
+layer}, ...}, "final_norm": {"scale"}, "head": {"w"}}``; LayerNorms add
+a ``bias``, and a tied head has no ``head`` entry: the logits GEMM runs
+over the embedding table, quantized through ``embed.qp_head`` once
+``calibrate_model`` has made one.  The JAX
 package stacks units along a leading axis for ``lax.scan`` when
 ``cfg.scan_layers`` is set; the port always keeps one entry per unit and
 loops over them (``checkpoint.convert`` unstacks a JAX tree), which is
@@ -18,6 +21,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core import (DeployedQuantState, QuantState, deployed_dense,
+                              quant_dense, tied_head_weight)
 from repro_torch.device import resolve_device
 from .attention import attention_block, init_attention
 from .common import (Params, apply_mlp, apply_norm, dense, embed,
@@ -35,8 +40,8 @@ def init_layer(gen, cfg: ModelConfig, kind: str, *, device,
     if kind != "attn":
         raise NotImplementedError(f"layer kind {kind!r} is not ported yet")
     dt, quant = cfg.torch_dtype, cfg.policy
-    p = {"ln1": init_norm(cfg.d_model, dt, device=device),
-         "ln2": init_norm(cfg.d_model, dt, device=device),
+    p = {"ln1": init_norm(cfg.d_model, dt, cfg.norm, device=device),
+         "ln2": init_norm(cfg.d_model, dt, cfg.norm, device=device),
          "mix": init_attention(gen, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
                                cfg.hd, dt, device=device, quant=quant,
                                name=f"{name}.mix")}
@@ -45,8 +50,8 @@ def init_layer(gen, cfg: ModelConfig, kind: str, *, device,
                             cfg.top_k, dt, device=device, quant=quant,
                             name=f"{name}.ffn")
     else:
-        p["ffn"] = init_mlp(gen, cfg.d_model, cfg.d_ff, dt, device=device,
-                            quant=quant, name=f"{name}.ffn")
+        p["ffn"] = init_mlp(gen, cfg.d_model, cfg.d_ff, dt, cfg.mlp,
+                            device=device, quant=quant, name=f"{name}.ffn")
     return p
 
 
@@ -54,21 +59,25 @@ def init_lm(cfg: ModelConfig, *, seed: int = 0, device=None) -> Params:
     """Random params from a ``torch.Generator`` on ``device`` seeded with
     ``seed`` (fan-in normal weights, unit norms; the global RNG is not
     touched), with ``QuantState`` leaves where ``cfg.policy`` quantizes a
-    linear."""
+    linear.  A tied head gets no ``head``: its quantizer state comes
+    from ``calibrate_model``, as in the JAX package."""
     cfg.validate().check_ported()
     device = resolve_device(device)
     gen = torch.Generator(device=device).manual_seed(seed)
     dt = cfg.torch_dtype
-    return {
+    p = {
         "embed": init_embedding(gen, cfg.vocab, cfg.d_model, dt,
                                 device=device),
         "units": {f"u{i}": {str(j): init_layer(gen, cfg, kind, device=device,
                                                name=f"unit.{j}")
                             for j, kind in enumerate(cfg.block_pattern)}
                   for i in range(cfg.n_units)},
-        "final_norm": init_norm(cfg.d_model, dt, device=device),
-        "head": init_linear(gen, (cfg.d_model, cfg.vocab), dt, device=device),
+        "final_norm": init_norm(cfg.d_model, dt, cfg.norm, device=device),
     }
+    if not cfg.tie_embeddings:
+        p["head"] = init_linear(gen, (cfg.d_model, cfg.vocab), dt,
+                                device=device)
+    return p
 
 
 # ---------------------------------------------------------------------------
@@ -115,11 +124,22 @@ def embed_inputs(p: Params, cfg: ModelConfig,
 
 def logits_from_hidden(p: Params, cfg: ModelConfig, x: torch.Tensor, *,
                        backend=None) -> torch.Tensor:
-    """Final norm + the untied float head, a plain ``torch.matmul`` in the
-    model dtype.  For a float32 model on the card the caller keeps
+    """Final norm + the head.  Untied: ``dense`` on ``head``.  Tied: a
+    deployed ``embed.qp_head`` runs the integer GEMM, a ``QuantState``
+    fake-quantizes over ``tied_head_weight(table)``, and without one the
+    head is ``x @ table.T``.  A float head is a plain ``torch.matmul`` in
+    the model dtype: for a float32 model on the card the caller keeps
     ``torch.backends.cuda.matmul.allow_tf32`` False (PyTorch's default)."""
     x = apply_norm(p["final_norm"], x, cfg.norm)
-    return dense(p["head"], x, backend=backend)
+    if not cfg.tie_embeddings:
+        return dense(p["head"], x, backend=backend)
+    table = p["embed"]["table"]
+    qp_head = p["embed"].get("qp_head")
+    if isinstance(qp_head, DeployedQuantState):
+        return deployed_dense(x, qp_head, backend=backend)
+    if isinstance(qp_head, QuantState):
+        return quant_dense(x, tied_head_weight(table), qp_head)
+    return x @ table.T.to(x.dtype)
 
 
 def forward(p: Params, cfg: ModelConfig, tokens: torch.Tensor, *, pos=0,

@@ -7,6 +7,9 @@ expert bank ``{"wi": [E, K, N], "qp_wi": QuantState}`` becomes
 ``{"qp_wi": DeployedQuantState}`` with a leading expert axis on each
 data leaf: per-expert codes, and the exponents of the one shared state
 repeated per expert (as the JAX package's ``vmap`` over experts does).
+A tied head's ``{"table", "qp_head": QuantState}`` keeps its float table
+(the input lookup) beside a deployed ``qp_head`` with the codes of
+``tied_head_weight(table)``.
 
   * weight codes at the per-channel scale ``2^floor(log2 aw)``;
   * activation exponent ``floor(log2 ax)``;
@@ -27,7 +30,8 @@ import dataclasses
 import torch
 
 from repro_torch.core import (DeployedQuantState, QuantState, effective_n_p,
-                              floor_log2, po2_quantize_codes)
+                              floor_log2, po2_quantize_codes,
+                              tied_head_weight)
 
 
 def _exponents(qp: QuantState):
@@ -84,7 +88,7 @@ def export_quantized(params, policy=None):
     ``policy`` optionally overrides each layer's spec (same n_p).
     Returns ``(deploy_params, report)``; report maps layer name to
     {k, n, n_p, gs, mode, int8_bytes, clamped_exps, count}, plus
-    ``n_experts`` for an expert bank.
+    ``n_experts`` for an expert bank and ``tied_head`` for a tied head.
     """
     report: dict = {}
 
@@ -132,11 +136,22 @@ def export_quantized(params, policy=None):
         record(dq, qp.spec, n_clamped, qp.name, n_experts=int(w.shape[0]))
         return dq
 
+    def export_head(table, qp: QuantState):
+        w = tied_head_weight(table)
+        qp = apply_policy(qp, int(w.shape[0]))
+        dq, n_clamped = _export_one(w, qp)
+        record(dq, qp.spec, n_clamped, qp.name, tied_head=True)
+        return dq
+
     def walk(tree):
         if not isinstance(tree, dict):
             return tree
         if "w" in tree and isinstance(tree.get("qp"), QuantState):
             return export_linear(tree["w"], tree["qp"])
+        if "table" in tree and isinstance(tree.get("qp_head"), QuantState):
+            out = {k: walk(v) for k, v in tree.items() if k != "qp_head"}
+            out["qp_head"] = export_head(tree["table"], tree["qp_head"])
+            return out
         # expert banks: [E, K, N] floats beside a shared QuantState
         banks = [k[3:] for k, v in tree.items()
                  if k.startswith("qp_") and isinstance(v, QuantState)

@@ -9,13 +9,17 @@ scales).  Two passes per unit: the second re-captures with the first
 pass's scales, so a linear downstream of another quantized linear in the
 same unit (the MLP's ``wo``) sees calibrated inputs.  Each unit is then
 re-applied with its calibrated scales before the next unit is captured.
+A tied head gets its ``embed.qp_head`` last (policy name ``"head"``),
+calibrated on the final-norm hidden states over
+``tied_head_weight(table)``.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.core import QuantConfig, QuantState, calibrate_dense
-from .policy import QuantPolicy
+from repro_torch.core import (QuantConfig, QuantState, calibrate_dense,
+                              quant_params_init, tied_head_weight)
+from .policy import QuantPolicy, resolve_quant
 
 
 def _replace_quant_states(tree, calibrated: dict):
@@ -58,6 +62,7 @@ def calibrate_model(params, cfg, batch: dict,
     (numpy or a tensor) on any device; it moves to the params' device.
     """
     # lazy: models import quant.policy
+    from repro_torch.models.common import apply_norm
     from repro_torch.models.model import apply_unit, embed_inputs
     device = params["embed"]["table"].device
     tokens = torch.as_tensor(batch["tokens"], device=device).long()
@@ -73,6 +78,17 @@ def calibrate_model(params, cfg, batch: dict,
         x, _ = apply_unit(new_unit, x, cfg=cfg, pos=0)
         new_units[key] = new_unit
     new_params["units"] = new_units
+    resolved = (resolve_quant(cfg.policy, "head") if cfg.tie_embeddings
+                else None)
+    if resolved is not None:
+        w2d = tied_head_weight(params["embed"]["table"])
+        xh = apply_norm(params["final_norm"], x, cfg.norm)
+        qp0 = params["embed"].get("qp_head")
+        if not isinstance(qp0, QuantState):
+            qp0 = quant_params_init(w2d, resolved, name="head")
+        qp = calibrate_dense(
+            qp0, xh.reshape(-1, xh.shape[-1])[:sample_tokens], w2d)
+        new_params["embed"] = {**params["embed"], "qp_head": qp}
     return new_params
 
 

@@ -9,17 +9,19 @@ machine without JAX:
 
 * APSQ GEMMs (generic and m=1) and the W8A8 baseline: bit-exact; both
   tensor-core designs over M, K, N (TinyLlama's projections at M 1-128
-  for APSQ; ragged tiles, misaligned operands, extreme codes at
-  K=5632, APSQ shift counts past 31) too, bit-identical on repeat, one
-  launch count per call.
+  for APSQ, StarCoder2-15B's and ChatGLM3-6B's at M 1, 8 and 16, a tied
+  head's W8A8 GEMM up to K=6144 N=49152; ragged tiles, misaligned
+  operands, extreme codes at K=5632, APSQ shift counts past 31) too,
+  bit-identical on repeat, one launch count per call.
 * The fused MoE expert GEMMs (APSQ and W8A8, all experts in one
   launch): bit-exact over E, M (rows past M masked, two row blocks at
   M=17), ragged K, gs (past 16 too) and both exponent layouts; banks
   with empty experts and experts with one live row, a routed OLMoE
   bank, operands 4-byte but not 16-byte aligned; bit-identical on
   repeat, one launch count per call.
-* INT8-KV attention, decode and chunk forms (hd 8, 16, 64 and 128):
-  rtol 2e-5 / atol 2e-6, with S split across blocks (S up to 4096),
+* INT8-KV attention, decode and chunk forms (hd 8, 16, 64 and 128; GQA
+  groups of 12 and 16 at hd 128): rtol 2e-5 / atol 2e-6, with S split
+  across blocks (S up to 4096),
   rows whose limit is <= 0 and a cache view that is 4-byte but not
   16-byte aligned; bit-identical on repeat, one launch count per call.
 * A CUDA tensor never takes the plain path: the launch counters move.
@@ -148,6 +150,26 @@ def test_apsq_kernels_bit_exact_and_repeatable(cuda, m, k, n, n_p, gs,
     else:
         e = torch.tensor(exps, dtype=torch.int32, device=cuda)
     _apsq_bit_exact_once_and_again(x, w, e, gs)
+
+
+# the dense decoders of the later slice under mix2_ffn4: (K, N, n_p, gs)
+# of StarCoder2-15B (d 6144, 4 KV heads of 128, GELU d_ff 24576) and
+# ChatGLM3-6B (d 4096, 2 KV heads of 128, SwiGLU d_ff 13696)
+DENSE_KN = [(6144, 6144, 4, 2), (6144, 512, 4, 2), (6144, 24576, 8, 4),
+            (24576, 6144, 8, 4), (4096, 4096, 4, 2), (4096, 256, 4, 2),
+            (4096, 13696, 8, 4), (13696, 4096, 8, 4)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 8, 16])
+@pytest.mark.parametrize("k,n,n_p,gs", DENSE_KN)
+def test_apsq_kernels_at_dense_decoder_shapes(cuda, k, n, n_p, gs, m):
+    g = torch.Generator(device=cuda).manual_seed(m * 7 + k + n)
+    x = torch.randint(-128, 128, (m, k), generator=g, device=cuda,
+                      dtype=torch.int8)
+    w = torch.randint(-128, 128, (k, n), generator=g, device=cuda,
+                      dtype=torch.int8)
+    _apsq_bit_exact_once_and_again(x, w, _serving_exps(x, w, n_p, gs), gs)
 
 
 @pytest.mark.cuda
@@ -358,6 +380,33 @@ def _kv_case(cuda, B, C, S, Hq, Hkv, hd, seed):
     return q, kc, vc, ke, ve
 
 
+# GQA groups of 12 (StarCoder2-15B: 48 query heads over 4 KV heads) and
+# 16 (ChatGLM3-6B: 32 over 2) at hd=128: rows = C * G leave the last
+# row block partial
+GQA_CASES = [(B, C, S, Hq, Hkv, 128, lengths)
+             for Hq, Hkv in ((48, 4), (32, 2))
+             for B, C, S, lengths in (
+                 (8, 0, 96, [5, 17, 33, 50, 64, 80, 95, 96]),
+                 (1, 0, 1024, [1000]),
+                 (2, 1, 96, [1, 70]), (2, 5, 96, [5, 96]),
+                 (2, 16, 96, [3, 96]),
+                 (8, 16, 96, [16, 17, 30, 41, 64, 80, 95, 96]))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,C,S,Hq,Hkv,hd,lengths", GQA_CASES)
+def test_kv_attention_gqa_groups_at_hd128(cuda, B, C, S, Hq, Hkv, hd,
+                                          lengths):
+    q, kc, vc, ke, ve = _kv_case(cuda, B, C, S, Hq, Hkv, hd, Hq + S + C)
+    length = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    got = kv_ops.int8_kv_attention(q, kc, vc, ke, ve, length)
+    again = kv_ops.int8_kv_attention(q, kc, vc, ke, ve, length)
+    want = kv_ref.int8_kv_attention_ref(q, kc, vc, ke, ve, length)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-6)
+    assert torch.equal(got, again)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,C,S,Hq,Hkv,hd,lengths", SPLIT_CASES)
 def test_kv_attention_split_s_matches_plain(cuda, B, C, S, Hq, Hkv, hd,
@@ -417,6 +466,25 @@ def test_w8a8_kernel_bit_exact_and_repeatable(cuda, m, k, n):
     assert torch.equal(got, ref.baseline_matmul_ref(x, w))
     assert torch.equal(got, again)
     assert _build.launch_counts["baseline_matmul"] == before + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [
+    (1, 64, 256), (3, 64, 256), (8, 64, 256), (16, 64, 256),
+    (1, 6144, 49152), (8, 6144, 49152), (16, 6144, 49152)])
+def test_w8a8_kernel_at_tied_head_shapes(cuda, m, k, n):
+    """A tied head's W8A8 GEMM: the smoke export's (K=64, N=256) and
+    StarCoder2-15B's width (K=6144, N=49152)."""
+    g = torch.Generator(device=cuda).manual_seed(m + k + n)
+    x = torch.randint(-128, 128, (m, k), generator=g, device=cuda,
+                      dtype=torch.int8)
+    w = torch.randint(-128, 128, (k, n), generator=g, device=cuda,
+                      dtype=torch.int8)
+    got = ops.baseline_matmul_int8(x, w)
+    again = ops.baseline_matmul_int8(x, w)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref.baseline_matmul_ref(x, w))
+    assert torch.equal(got, again)
 
 
 @pytest.mark.cuda
