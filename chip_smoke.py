@@ -98,14 +98,33 @@ Phases (each exits non-zero on failure):
              DeepSeek-7B (MHA, float head at vocab 102400) at full width
              cut to 2 layers (mix2_ffn4): 4 requests on 4 slots, and a
              max_batch=1 engine on one of them gives the same tokens.
+  train      quantization-aware training of full-width TinyLlama-1.1B
+             (22 layers, random bf16 weights from a seed) under APSQ
+             gs=2 n_p=8 on every projection (the launcher's ``--quant
+             apsq --gs 2 --np 8``), TF32 off: init_lm -> calibrate_model
+             -> Trainer.fit for 10 steps (SyntheticCorpus, seq 256, batch
+             8 in 2 microbatches, per-unit remat, AdamW at lr 3e-4 with
+             the launcher's warmup and cosine) -> checkpoint at the last
+             step -> restore: every leaf bit-equal -> 2 steps resumed from
+             the checkpoint (``Trainer.fit``) bit-equal to 2 steps in
+             memory -> snap_params_po2 / export_quantized of the restored
+             params: the snapped fake-quant forward and the integer
+             forward on the CUDA kernels agree within 1e-4 with the same
+             greedy tokens on a batch of 2 x 256 -> PagedServingEngine
+             serves 4 requests, and a max_batch=1 engine gives request
+             0's tokens.  Losses and grad norms finite, the mean of the
+             last 3 losses at least 0.5 below the first.  Records the
+             median step time, training tokens/s, peak memory and the
+             loss trajectory; ``--profile`` traces one more step.
 
-The main path runs in seven configurations, each its own path:
+The main path runs in nine configurations, each its own path:
 ``serve`` (mix2_ffn4: every layer APSQ), ``w8a8`` (ffn_only: W8A8
 attention projections), ``moe_serve`` (OLMoE, mix2_ffn4), ``moe_w8a8``
-(OLMoE, W8A8), ``load`` (the restored JAX export), ``sc2_serve`` and
-``dense_2l``'s two models.  Launch counts are zeroed just before each
-and read just after;
-every kernel of each path must have launched.  The line before the
+(OLMoE, W8A8), ``load`` (the restored JAX export), ``sc2_serve``,
+``dense_2l``'s two models and ``train`` (its export -> serve tail; the
+training step itself is plain PyTorch and reaches no kernel).  Launch
+counts are zeroed just before each and read just after; every kernel of
+each path must have launched.  The line before the
 last holds the per-kernel record: ``launches`` is the count of the path
 named in ``path``, ``launches_by_path`` each path's own count (never a
 sum).  Each serving phase records ``tokens_sha256``, a digest of its
@@ -129,7 +148,7 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 INT8_OPS_PER_S = 1979e12       # H100 SXM int8 tensor cores, dense
 F32_OPS_PER_S = 67e12          # H100 SXM float32 outside the tensor cores
 PHASES = ("build", "kernels", "reference", "serve", "w8a8", "moe_reference",
-          "moe_serve", "moe_w8a8", "load", "sc2_serve", "dense_2l")
+          "moe_serve", "moe_w8a8", "load", "sc2_serve", "dense_2l", "train")
 FIXTURE = os.path.join(ROOT, "tests", "fixtures",
                        "jax_export_starcoder2_smoke")
 NO_BATCHED_INT8_MM = ("none: PyTorch has no single call for a batched "
@@ -176,6 +195,7 @@ PATH_KERNELS = {
                              "int8_kv_attention"),
     "dense_2l/deepseek-7b": ("apsq_matmul", "apsq_matmul_m1",
                              "int8_kv_attention"),
+    "train": ("apsq_matmul", "apsq_matmul_m1", "int8_kv_attention"),
 }
 
 
@@ -1461,6 +1481,174 @@ def phase_dense_2l(torch, np, _build, configs, dev):
     return info, problems
 
 
+TRAIN_CKPT = os.path.join(ROOT, "_train_ckpt")    # git-ignored, removed
+
+
+def tree_bits_equal(torch, a, b) -> list:
+    """Paths where two trees' leaves differ in shape, dtype or any bit."""
+    from repro_torch.models import tree_leaves
+    la, lb = dict(tree_leaves(a)), dict(tree_leaves(b))
+    if la.keys() != lb.keys():
+        return [f"leaf sets differ: {sorted(set(la) ^ set(lb))[:4]}"]
+    bad = []
+    for path, x in la.items():
+        y = lb[path]
+        if x.shape != y.shape or x.dtype != y.dtype:
+            bad.append("/".join(path))
+            continue
+        ix = x.view(torch.int16) if x.element_size() == 2 else x
+        iy = y.view(torch.int16) if y.element_size() == 2 else y
+        if not torch.equal(ix, iy):
+            bad.append("/".join(path))
+    return bad
+
+
+def phase_train(torch, np, _build, cfg, dev, steps: int = 10,
+                profile: bool = False):
+    """Full-width QAT: init -> calibrate -> Trainer.fit (APSQ gs=2 n_p=8,
+    seq 256, batch 8, 2 microbatches) -> save -> restore (bit-equal) ->
+    2 steps resumed from the checkpoint == 2 steps in memory (bit-equal)
+    -> snap_params_po2 / export_quantized: the snapped fake-quant forward
+    and the integer forward on the card agree (1e-4, same greedy tokens)
+    -> PagedServingEngine serves 4 requests, a max_batch=1 engine gives
+    request 0's tokens."""
+    import dataclasses
+    import shutil
+    from repro_torch.checkpoint import restore
+    from repro_torch.core import QuantConfig
+    from repro_torch.data import DataConfig, SyntheticCorpus, \
+        device_put_batch
+    from repro_torch.models import forward, init_lm
+    from repro_torch.optim import OptimConfig
+    from repro_torch.quant import calibrate_model, export_quantized, \
+        snap_params_po2
+    from repro_torch.serving import PagedServingEngine, Request
+    from repro_torch.train import TrainConfig, Trainer, make_train_step
+    problems = []
+    info = {"allow_tf32": [torch.backends.cuda.matmul.allow_tf32,
+                           torch.backends.cudnn.allow_tf32]}
+    if any(info["allow_tf32"]):
+        problems.append(f"TF32 is on {info['allow_tf32']}: the fake-quant "
+                        "GEMM needs exact float32 tile sums")
+    cfg = cfg.with_quant(QuantConfig.apsq(gs=2, n_p=8))
+    data = DataConfig(vocab=cfg.vocab, seq_len=256, global_batch=8)
+    corpus = SyntheticCorpus(data)
+    # the launcher's schedule at --lr 3e-4
+    ocfg = OptimConfig(lr=3e-4, total_steps=steps,
+                       warmup_steps=max(steps // 20, 5))
+    shutil.rmtree(TRAIN_CKPT, ignore_errors=True)
+    tcfg = TrainConfig(microbatches=2, steps=steps, save_every=steps,
+                       log_every=5, ckpt_dir=TRAIN_CKPT)
+    _build.reset_launch_counts()
+    params = init_lm(cfg, seed=0, device=dev)
+    params = calibrate_model(params, cfg,
+                             {"tokens": corpus.batch_at(10**6)["tokens"]})
+    sync(torch, dev)
+    torch.cuda.reset_peak_memory_stats()
+    trainer = Trainer(cfg, ocfg, tcfg, device=dev)
+    t0 = time.perf_counter()
+    params, opt = trainer.fit(data, params=params,
+                              log=lambda m: print(m, flush=True))
+    info["fit_s"] = time.perf_counter() - t0     # checkpoint write included
+    info["train_peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    log = trainer.metrics_log
+    losses = [m["loss"] for m in log]
+    dts = sorted(m["dt"] for m in log)
+    info["steps"] = steps
+    info["losses"] = losses
+    info["grad_norms"] = [m["grad_norm"] for m in log]
+    info["step_ms_median"] = 1e3 * dts[len(dts) // 2]
+    info["step_ms_first"] = 1e3 * log[0]["dt"]
+    info["train_tokens_per_s"] = (data.global_batch * data.seq_len
+                                  / (info["step_ms_median"] / 1e3))
+    if not all(math.isfinite(v) for v in losses + info["grad_norms"]):
+        problems.append("a loss or grad-norm is not finite")
+    info["loss_drop"] = losses[0] - sum(losses[-3:]) / 3
+    if not info["loss_drop"] >= 0.5:
+        problems.append(f"mean of the last 3 losses is not 0.5 below the "
+                        f"first: {losses}")
+    step_fn = make_train_step(cfg, ocfg, tcfg)
+    if profile:     # one more step, traced (device activity), discarded
+        from torch.profiler import ProfilerActivity
+        batch = device_put_batch(corpus.batch_at(steps), dev)
+        sync(torch, dev)
+        prof = torch.profiler.profile(activities=[ProfilerActivity.CUDA])
+        prof.__enter__()
+        tw = time.perf_counter()
+        step_fn(params, opt, batch)
+        sync(torch, dev)
+        window = time.perf_counter() - tw
+        prof.__exit__(None, None, None)
+        info["profile"] = profile_summary(prof, window)
+        info["profile"].update(window_s=window, window="one train step")
+
+    t0 = time.perf_counter()
+    state, manifest = restore(TRAIN_CKPT, device=dev)
+    info["restore_s"] = time.perf_counter() - t0
+    info["ckpt_leaves"] = len(manifest["leaves"])
+    info["ckpt_gb"] = sum(os.path.getsize(os.path.join(dirpath, f))
+                          for dirpath, _, files in os.walk(TRAIN_CKPT)
+                          for f in files) / 1e9
+    bad = tree_bits_equal(torch, state, {"params": params, "opt": opt})
+    info["restored_bit_equal"] = not bad
+    if bad:
+        problems.append(f"restored tree differs at {bad[:4]}")
+    trained = state["params"]
+    del state
+    for s in (steps, steps + 1):
+        params, opt, _ = step_fn(params, opt,
+                                 device_put_batch(corpus.batch_at(s), dev))
+    resumed = Trainer(cfg, ocfg, dataclasses.replace(tcfg, save_every=0),
+                      device=dev)
+    p_res, o_res = resumed.fit(data, steps=steps + 2, log=lambda m: None)
+    bad = tree_bits_equal(torch, {"params": params, "opt": opt},
+                          {"params": p_res, "opt": o_res})
+    info["resume_bit_equal"] = not bad
+    if bad:
+        problems.append(f"2 steps resumed from the checkpoint differ from "
+                        f"2 steps in memory at {bad[:4]}")
+    del params, opt, p_res, o_res
+    shutil.rmtree(TRAIN_CKPT, ignore_errors=True)
+    release(torch)
+
+    # the trained model (from its checkpoint), exported and served
+    deploy, report = export_quantized(trained)
+    info["clamped_exps"] = sum(r["clamped_exps"] for r in report.values())
+    tokens = torch.as_tensor(corpus.batch_at(10**6 + 1)["tokens"][:2],
+                             device=dev)
+    with torch.no_grad():
+        fake = forward(snap_params_po2(trained), cfg, tokens).float()
+        integer = forward(deploy, cfg, tokens).float()
+    del trained
+    info["logit_gap"] = float((fake - integer).abs().max())
+    info["greedy_equal"] = bool(torch.equal(fake.argmax(-1),
+                                            integer.argmax(-1)))
+    if not info["logit_gap"] <= 1e-4 or not info["greedy_equal"]:
+        problems.append(f"snapped fake quant vs integer path: max |gap| "
+                        f"{info['logit_gap']}, greedy equal "
+                        f"{info['greedy_equal']}")
+    del fake, integer
+    rng = np.random.default_rng(51)
+    reqs = make_requests(np, rng, 4, cfg.vocab, 5, 48, 8, 16, Request)
+    kw = dict(page_size=16, prefill_chunk=16, decode_horizon=8,
+              max_pages_per_slot=4)
+    single, _ = single_stream_check(torch, deploy, cfg, reqs[:1], kw, dev,
+                                    probe_eos=False)
+    eng = PagedServingEngine(deploy, cfg, max_batch=4, n_pages=4 * 4 + 1,
+                             **kw)
+    done = serve_all(torch, _build, dev, eng, reqs, False, info)
+    info["peak_mem_gb"] = max(info["train_peak_mem_gb"],
+                              info["peak_mem_gb"] or 0.0)
+    outs = {r.uid: r.out for r in done}
+    if len(done) != 4:
+        problems.append(f"{len(done)} of 4 requests finished")
+    if outs.get(0) != single[0]:
+        problems.append(f"batched {outs.get(0)} != single-stream "
+                        f"{single[0]}")
+    problems += missing_launches("train", info["launches"])
+    return info, problems
+
+
 # ---------------------------------------------------------------------------
 
 def main() -> int:
@@ -1469,8 +1657,8 @@ def main() -> int:
                     help="comma-separated subset of " + ",".join(PHASES))
     ap.add_argument("--profile", action="store_true",
                     help="trace one heartbeat of the serve, moe_serve and "
-                         "sc2_serve phases' batched engines with "
-                         "torch.profiler")
+                         "sc2_serve phases' batched engines, and one train "
+                         "step of the train phase, with torch.profiler")
     args = ap.parse_args()
     phases = [p for p in args.phases.split(",") if p]
     for p in phases:
@@ -1547,6 +1735,10 @@ def main() -> int:
             info, problems = phase_dense_2l(
                 torch, np, _build, (chatglm3_6b.CONFIG, deepseek_7b.CONFIG),
                 cuda)
+        elif phase == "train":
+            info, problems = phase_train(torch, np, _build,
+                                         tinyllama_1_1b.CONFIG, cuda,
+                                         profile=args.profile)
         if "launches" in info:
             launches[phase] = info["launches"]
         launches.update(info.pop("paths", {}))
@@ -1555,7 +1747,7 @@ def main() -> int:
         detail[phase] = info
         short = {k: v for k, v in info.items()
                  if k not in ("gemm", "expert_gemm", "attention", "ptxas",
-                              "profile")}
+                              "profile", "grad_norms")}
         emit({"phase": phase, "ok": not problems, "seconds": round(dt, 3),
               "card": card, **short})
         if problems:

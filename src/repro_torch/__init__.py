@@ -2,7 +2,8 @@
 
 A second package beside the JAX reference ``repro``: the same subpackage
 and function names (``core``, ``kernels``, ``exec``, ``models``,
-``serving``, ``quant``, ``configs``), so every ported module has a
+``serving``, ``quant``, ``configs``, ``checkpoint``, ``data``,
+``optim``, ``train``, ``launch``), so every ported module has a
 reference of the same name.  It imports ``torch`` and numpy only.
 
 The integer hot path — the APSQ GEMM (generic grid, m=1 decode form,
@@ -20,6 +21,10 @@ The port covers the production path of dense and MoE decoders:
 ``init_lm`` -> ``calibrate_model`` -> ``export_quantized`` ->
 ``PagedServingEngine.from_exported`` -> ``run``, and serves an export
 the JAX package saved: ``checkpoint.restore`` -> ``PagedServingEngine``.
+It trains dense decoders with APSQ quantization-aware training
+(``train.Trainer``, ``python -m repro_torch.launch.train``): fake quant
+with straight-through gradients, plain PyTorch on the card (the training
+step reaches no kernel), checkpoints in the JAX package's format.
 """
 from .device import resolve_device
 

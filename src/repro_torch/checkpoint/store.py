@@ -1,5 +1,6 @@
-"""Load a checkpoint written by the JAX package, without JAX (port of the
-read side of ``repro/checkpoint/store.py``).
+"""Checkpoints in the JAX package's format, without JAX (port of
+``repro/checkpoint/store.py``): ``restore`` reads one the JAX package
+wrote, ``save`` / ``AsyncCheckpointer`` write one its ``restore`` reads.
 
 The layout is the JAX package's: a step directory ``step-<9 digits>``
 holding one ``.npy`` per leaf, named by its ``/``-joined tree path with
@@ -16,11 +17,27 @@ and scan-stacked units are unstacked (``convert.unstack_units``), so the
 tree is the one ``convert_params`` gives for the same export.  Checkpoints
 from before the JAX package's quantizer metadata (its
 ``_upgrade_legacy_quant``) are not read.
+
+``save`` writes the same layout: leaves from ``models.model.tree_leaves``
+(the walker the optimizer uses), ``quant_states`` from the states it
+meets (a trainer's optimizer moments carry their params' states, so
+``opt/m/...`` paths get the metadata too), bfloat16 leaves by their bits
+(an int16 ``.npy`` under the manifest dtype ``"bfloat16"``, which the
+JAX package's ``restore`` views back).  A save goes to ``tmp-<step>``
+and is renamed to ``step-<9 digits>`` when complete, so a crash
+mid-save never leaves a torn latest checkpoint.  ``AsyncCheckpointer``
+copies to host memory synchronously and writes on a thread, keeping the
+last ``keep`` steps; ``install_signal_handler`` saves on SIGTERM
+(preemption) before re-raising.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
+import shutil
+import signal
+import threading
 
 import numpy as np
 import torch
@@ -28,6 +45,7 @@ import torch
 from repro_torch.core import (DeployedQuantState, PsumQuantConfig,
                               QuantConfig, QuantState)
 from repro_torch.device import resolve_device
+from repro_torch.models.model import tree_leaves, tree_map
 from .convert import unstack_units
 
 _SEP = "/"
@@ -38,6 +56,116 @@ _BY_BITS = {"bfloat16": (np.int16, torch.bfloat16)}
 
 def _key_to_fname(key: str) -> str:
     return key.replace(_SEP, "__") + ".npy"
+
+
+def _spec_to_json(spec: QuantConfig | None):
+    return None if spec is None else dataclasses.asdict(spec)
+
+
+def _flatten(tree, quant_meta: dict | None = None) -> dict:
+    """``{"a/b/c": tensor}`` over dicts and quantizer states; with
+    ``quant_meta``, record each state's kind, spec and name (and a
+    deployed state's ``out_dims``) under its path."""
+    nodes: dict = {}
+    flat = {_SEP.join(path): leaf
+            for path, leaf in tree_leaves(tree, nodes=nodes)}
+    if quant_meta is not None:
+        for path, node in nodes.items():
+            meta = {"kind": type(node).__name__,
+                    "spec": _spec_to_json(node.spec), "name": node.name}
+            if isinstance(node, DeployedQuantState):
+                meta["out_dims"] = list(node.out_dims)
+            quant_meta[_SEP.join(path)] = meta
+    return flat
+
+
+def _to_numpy(t: torch.Tensor) -> tuple:
+    """(array to write, manifest dtype): bfloat16 by its bits."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy(), "bfloat16"
+    arr = t.numpy()
+    return arr, str(arr.dtype)
+
+
+def save(ckpt_dir: str, step: int, tree, extra: dict | None = None) -> str:
+    """Synchronous atomic checkpoint save; returns the final path."""
+    quant_meta: dict = {}
+    flat = _flatten(tree, quant_meta)
+    tmp = os.path.join(ckpt_dir, f"tmp-{step}")
+    final = os.path.join(ckpt_dir, f"step-{step:09d}")
+    if os.path.exists(tmp):
+        shutil.rmtree(tmp)
+    os.makedirs(tmp, exist_ok=True)
+    manifest = {"step": step, "extra": extra or {}, "leaves": {},
+                "quant_states": quant_meta}
+    for key, val in flat.items():
+        arr, dtype = _to_numpy(val)
+        manifest["leaves"][key] = {"shape": list(arr.shape), "dtype": dtype}
+        np.save(os.path.join(tmp, _key_to_fname(key)), arr)
+    with open(os.path.join(tmp, "manifest.json"), "w") as f:
+        json.dump(manifest, f, indent=1)
+    if os.path.exists(final):
+        shutil.rmtree(final)
+    os.rename(tmp, final)
+    return final
+
+
+def _to_host(tree):
+    """A copy of ``tree`` in host memory (blocks on the device only)."""
+    return tree_map(lambda _, t: t.detach().to("cpu", copy=True), tree)
+
+
+class AsyncCheckpointer:
+    """Device->host copy synchronously; filesystem write on a thread, one
+    in flight at a time.  ``wait`` joins it and raises what it raised."""
+
+    def __init__(self, ckpt_dir: str, keep: int = 3):
+        self.ckpt_dir = ckpt_dir
+        self.keep = keep
+        self._thread: threading.Thread | None = None
+        self._error: BaseException | None = None
+        os.makedirs(ckpt_dir, exist_ok=True)
+
+    def wait(self):
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+        if self._error is not None:
+            err, self._error = self._error, None
+            raise err
+
+    def save(self, step: int, tree, extra: dict | None = None):
+        self.wait()
+        host_tree = _to_host(tree)
+
+        def _write():
+            try:
+                save(self.ckpt_dir, step, host_tree, extra)
+                self._gc()
+            except Exception as e:   # re-raised by wait()
+                self._error = e
+
+        self._thread = threading.Thread(target=_write, daemon=True)
+        self._thread.start()
+
+    def _gc(self):
+        for s in list_steps(self.ckpt_dir)[: -self.keep]:
+            shutil.rmtree(os.path.join(self.ckpt_dir, f"step-{s:09d}"),
+                          ignore_errors=True)
+
+
+def install_signal_handler(checkpointer: AsyncCheckpointer, get_state):
+    """Emergency checkpoint on SIGTERM (preemption notice), then re-raise:
+    ``get_state()`` returns ``(step, tree)``."""
+    def handler(signum, frame):
+        step, tree = get_state()
+        save(checkpointer.ckpt_dir, step, _to_host(tree),
+             {"emergency": True})
+        signal.signal(signum, signal.SIG_DFL)
+        os.kill(os.getpid(), signum)
+
+    signal.signal(signal.SIGTERM, handler)
 
 
 def _unflatten(flat: dict) -> dict:

@@ -18,10 +18,21 @@ def _module(name: str):
     return importlib.import_module(f"repro_torch.configs.{_MODULES[name]}")
 
 
-def get_config(name: str, quant=None):
-    """Full published config, optionally with a ``QuantConfig`` or
-    ``QuantPolicy``."""
+def get_config(name: str, quant="none", gs: int = 2, n_p: int = 8):
+    """Full published config, optionally with the paper's PSUM
+    quantization: ``quant`` is a preset (``"none"``, ``"w8a8"``,
+    ``"psq"``, ``"apsq"``; ``gs`` and ``n_p`` for the PSUM presets), a
+    ``QuantConfig`` or a per-layer ``QuantPolicy``."""
+    from repro_torch.core import QuantConfig
     cfg = _module(name).CONFIG
+    if isinstance(quant, str):
+        presets = {"none": None, "apsq": QuantConfig.apsq(gs=gs, n_p=n_p),
+                   "psq": QuantConfig.psq(n_p=n_p),
+                   "w8a8": QuantConfig.w8a8()}
+        if quant not in presets:
+            raise KeyError(f"unknown quant preset {quant!r}; "
+                           f"known: {sorted(presets)}")
+        quant = presets[quant]
     if quant is not None:
         cfg = cfg.with_quant(quant)
     return cfg.validate()

@@ -1,4 +1,4 @@
-"""Quantized linear layers, forward only (port of ``repro/core/layers.py``).
+"""Quantized linear layers (port of ``repro/core/layers.py``).
 
 ``QuantState`` is one linear's quantizer state (LSQ scales ``aw``/``ax``
 and PO2 log2 PSUM scales ``ap``) with its resolved ``QuantConfig`` and
@@ -7,8 +7,12 @@ stable layer name; ``DeployedQuantState`` is its integer deployment view
 ``repro_torch.quant.export_quantized``.  Both hold torch tensors.
 
 ``quant_dense`` runs a linear three ways, chosen by the state it is
-given: plain float, W8A8 (+ PSQ/APSQ) fake quant for calibration, or the
-integer deployment path through ``repro_torch.exec.execute_gemm``.
+given: plain float, W8A8 (+ PSQ/APSQ) fake quant for calibration and
+quantization-aware training, or the integer deployment path through
+``repro_torch.exec.execute_gemm``.  Fake quant is differentiable in
+``x``, ``w`` and the state's ``aw`` (per-channel or scalar), ``ax`` and
+``ap``: the trainer makes those three trainable leaves, while ``spec``
+and ``name`` stay static (as in the JAX pytree).
 """
 from __future__ import annotations
 
@@ -172,8 +176,9 @@ def quant_dense(x: torch.Tensor, w: torch.Tensor | None, qp, *,
     """``x @ w`` as the state ``qp`` says.
 
     ``DeployedQuantState``: the integer path (``w`` ignored).
-    ``QuantState``: W8A8 fake quant, plus PSQ/APSQ on the PSUMs; appends
-    a ``TapRecord`` to ``tap`` when given.  None: plain float GEMM.
+    ``QuantState``: W8A8 fake quant, plus PSQ/APSQ on the PSUMs, with
+    the straight-through gradients of ``core.quantizers``; appends a
+    ``TapRecord`` to ``tap`` when given.  None: plain float GEMM.
     x: [..., K]; w: [K, N], or a MoE bank [E, K, N] against x [E, C, K]
     with one state shared by every expert (``models.moe``, which taps
     its experts itself).  Returns [..., N] in x.dtype.

@@ -3,12 +3,14 @@ from .config import ModelConfig
 from .model import (apply_layer, apply_unit, decode_horizon_paged,
                     decode_step_paged, embed_inputs, forward,
                     forward_paged_chunk, init_lm, init_paged_decode_state,
-                    logits_from_hidden, paged_state_axes)
+                    lm_loss, logits_from_hidden, paged_state_axes,
+                    tree_leaves, tree_map)
 from .moe import init_moe, moe_ffn
 
 __all__ = [
     "ModelConfig", "apply_layer", "apply_unit", "decode_horizon_paged",
     "decode_step_paged", "embed_inputs", "forward", "forward_paged_chunk",
-    "init_lm", "init_moe", "init_paged_decode_state", "logits_from_hidden",
-    "moe_ffn", "paged_state_axes",
+    "init_lm", "init_moe", "init_paged_decode_state", "lm_loss",
+    "logits_from_hidden", "moe_ffn", "paged_state_axes", "tree_leaves",
+    "tree_map",
 ]

@@ -1,10 +1,12 @@
-"""ModelConfig (port of ``repro/models/config.py``, the served fields).
+"""ModelConfig (port of ``repro/models/config.py``, the fields the port
+reads).
 
-The JAX dataclass's field names, for the fields the served decoders read
-(``block_pattern=("attn",)``, RMSNorm or LayerNorm, a SwiGLU, GELU or
-MoE channel mix, partial RoPE, a tied or untied head).  The JAX
-package's ``scan_layers`` has no counterpart: the port always holds
-units as ``{"u0": ..., "u1": ...}`` and loops over them.
+The JAX dataclass's field names and defaults, for the fields the served
+and trained decoders read (``block_pattern=("attn",)``, RMSNorm or
+LayerNorm, a SwiGLU, GELU or MoE channel mix, partial RoPE, a tied or
+untied head; ``remat``/``remat_policy`` and ``z_loss`` for training).
+The JAX package's ``scan_layers`` has no counterpart: the port always
+holds units as ``{"u0": ..., "u1": ...}`` and loops over them.
 """
 from __future__ import annotations
 
@@ -15,6 +17,7 @@ import torch
 from repro_torch.core import QuantConfig
 
 BLOCK_KINDS = ("attn", "local", "rwkv", "rglru")
+REMAT_POLICIES = ("none", "dots")
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
@@ -44,6 +47,10 @@ class ModelConfig:
     dtype: str = "bfloat16"
     quant: QuantConfig = dataclasses.field(default_factory=QuantConfig)
     quant_policy: object | None = None
+    remat: bool = True
+    remat_policy: str = "none"        # none | dots  ("none" = save nothing)
+    # loss
+    z_loss: float = 0.0
 
     @property
     def hd(self) -> int:
@@ -83,6 +90,9 @@ class ModelConfig:
         if self.mlp == "moe":
             assert 1 <= self.top_k <= self.n_experts, (self.top_k,
                                                        self.n_experts)
+        if self.remat_policy not in REMAT_POLICIES:
+            raise ValueError(f"remat_policy {self.remat_policy!r} is not "
+                             f"one of {REMAT_POLICIES}")
         return self
 
     def check_ported(self):

@@ -12,12 +12,19 @@ loops over them (``checkpoint.convert`` unstacks a JAX tree), which is
 the same computation.  Layer names follow the JAX package
 (``unit.<pattern position>.mix.wq`` ...), so policies resolve the same.
 
-Entry points: ``init_lm``, ``forward`` (full sequence; calibration),
-``forward_paged_chunk`` / ``decode_step_paged`` (serving over the paged
-INT8 KV cache) and ``decode_horizon_paged`` (H greedy decode steps with
-per-slot EOS / budget masking, a Python loop in place of ``lax.scan``).
+Entry points: ``init_lm``, ``forward`` (full sequence; calibration and
+training, each unit under activation checkpointing when ``cfg.remat``),
+``lm_loss``, ``forward_paged_chunk`` / ``decode_step_paged`` (serving
+over the paged INT8 KV cache) and ``decode_horizon_paged`` (H greedy
+decode steps with per-slot EOS / budget masking, a Python loop in place
+of ``lax.scan``).  ``tree_map`` / ``tree_leaves`` walk a params tree
+(nested dicts and ``QuantState``s), in one order: the optimizer and the
+checkpoint writer share them.
 """
 from __future__ import annotations
+
+import dataclasses
+import functools
 
 import torch
 
@@ -142,14 +149,62 @@ def logits_from_hidden(p: Params, cfg: ModelConfig, x: torch.Tensor, *,
     return x @ table.T.to(x.dtype)
 
 
+def _remat(fn, cfg: ModelConfig):
+    """``fn`` under ``torch.utils.checkpoint`` (non-reentrant), the port of
+    the JAX package's ``_remat``: ``remat_policy="none"`` saves nothing
+    and recomputes the unit in the backward pass; ``"dots"`` saves the
+    matrix products' outputs (``checkpoint_dots``) and recomputes the
+    rest."""
+    from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                        create_selective_checkpoint_contexts)
+    kw = {}
+    if cfg.remat_policy == "dots":
+        aten = torch.ops.aten
+        dots = (aten.mm.default, aten.bmm.default, aten.addmm.default,
+                aten.baddbmm.default)
+
+        def policy(ctx, op, *args, **kwargs):
+            return (CheckpointPolicy.MUST_SAVE if op in dots
+                    else CheckpointPolicy.PREFER_RECOMPUTE)
+
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, policy)
+    return lambda *args: checkpoint(fn, *args, use_reentrant=False, **kw)
+
+
 def forward(p: Params, cfg: ModelConfig, tokens: torch.Tensor, *, pos=0,
             tap: list | None = None, backend=None) -> torch.Tensor:
-    """Full-sequence causal forward; returns logits [B, S, V]."""
+    """Full-sequence causal forward; returns logits [B, S, V].
+
+    With ``cfg.remat`` and autograd recording, each unit runs under
+    activation checkpointing (``_remat``); the values are the same
+    either way.  A capture ``tap`` runs every unit once, unwrapped."""
     x = embed_inputs(p, cfg, tokens)
+    remat = cfg.remat and tap is None and torch.is_grad_enabled()
     for i in range(len(p["units"])):
-        x, _ = apply_unit(p["units"][f"u{i}"], x, cfg=cfg, pos=pos, tap=tap,
-                          backend=backend)
+        def unit(h, _p=p["units"][f"u{i}"]):
+            return apply_unit(_p, h, cfg=cfg, pos=pos, tap=tap,
+                              backend=backend)[0]
+        x = _remat(unit, cfg)(x) if remat else unit(x)
     return logits_from_hidden(p, cfg, x, backend=backend)
+
+
+def lm_loss(logits: torch.Tensor, labels: torch.Tensor,
+            mask: torch.Tensor | None = None,
+            z_loss: float = 0.0) -> torch.Tensor:
+    """Token-mean cross entropy in fp32 (+ optional z-loss).
+
+    logits [B, S, V]; labels [B, S] int; mask [B, S] (1 = contributes)."""
+    lf = logits.float()
+    lse = torch.logsumexp(lf, dim=-1)
+    ll = torch.gather(lf, -1, labels.long()[..., None])[..., 0]
+    nll = lse - ll
+    if z_loss:
+        nll = nll + z_loss * torch.square(lse)
+    if mask is None:
+        return nll.mean()
+    mask = mask.float()
+    return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
 
 
 # ---------------------------------------------------------------------------
@@ -212,12 +267,48 @@ def decode_step_paged(p: Params, cfg: ModelConfig, state: Params,
 # State-tree slot axes and the fused decode horizon
 # ---------------------------------------------------------------------------
 
+_META_FIELDS = ("spec", "name", "out_dims")    # static, as in JAX's pytree
+
+
+def _data_fields(state) -> list:
+    """A quantizer state's data fields that hold a value (an ``ap`` that
+    is None is no leaf): its pytree leaves, in field order."""
+    return [f.name for f in dataclasses.fields(state)
+            if f.name not in _META_FIELDS
+            and getattr(state, f.name) is not None]
+
+
 def tree_map(f, *trees, path=()):
-    """Map over nested dicts of tensors; ``f(path, *leaves)``."""
-    if isinstance(trees[0], dict):
+    """Map over nested dicts of tensors and quantizer states; ``f(path,
+    *leaves)`` with ``path`` the tuple of dict keys and state field names.
+    A ``QuantState`` (or ``DeployedQuantState``) maps to one of its kind
+    with the first tree's ``spec`` and ``name`` (an ``ap`` that is None
+    stays None), as ``jax.tree.map`` maps the JAX package's registered
+    dataclasses."""
+    t0 = trees[0]
+    if isinstance(t0, dict):
         return {k: tree_map(f, *(t[k] for t in trees), path=path + (k,))
-                for k in trees[0]}
+                for k in t0}
+    if isinstance(t0, (QuantState, DeployedQuantState)):
+        return dataclasses.replace(t0, **{
+            k: tree_map(f, *(getattr(t, k) for t in trees), path=path + (k,))
+            for k in _data_fields(t0)})
     return f(path, *trees)
+
+
+def tree_leaves(tree, path=(), nodes: dict | None = None) -> list:
+    """``[(path, leaf), ...]`` in ``tree_map``'s order.  ``nodes``, when
+    given, also receives ``{path: state}`` for every quantizer state met
+    (the checkpoint's ``quant_states``)."""
+    if isinstance(tree, dict):
+        return [kv for k, v in tree.items()
+                for kv in tree_leaves(v, path + (k,), nodes)]
+    if isinstance(tree, (QuantState, DeployedQuantState)):
+        if nodes is not None:
+            nodes[path] = tree
+        return [kv for k in _data_fields(tree)
+                for kv in tree_leaves(getattr(tree, k), path + (k,), nodes)]
+    return [(path, tree)]
 
 
 def paged_state_axes(state: Params) -> Params:

@@ -1,7 +1,10 @@
-"""Quantization workflow of the port: policies, calibration, export."""
-from .export import export_quantized
+"""Quantization workflow of the port: policies, calibration, QAT
+objectives, export."""
+from .export import export_quantized, snap_params_po2
 from .policy import QuantPolicy, QuantRule, resolve_quant
-from .qat import calibrate_model, policy_presets
+from .qat import (calibrate_model, distill_loss, make_distill_loss_fn,
+                  policy_presets, quant_variants)
 
-__all__ = ["QuantPolicy", "QuantRule", "calibrate_model", "export_quantized",
-           "policy_presets", "resolve_quant"]
+__all__ = ["QuantPolicy", "QuantRule", "calibrate_model", "distill_loss",
+           "export_quantized", "make_distill_loss_fn", "policy_presets",
+           "quant_variants", "resolve_quant", "snap_params_po2"]

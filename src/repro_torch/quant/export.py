@@ -1,5 +1,6 @@
-"""Integer deployment export (port of ``export_quantized`` in
-``repro/quant/export.py``: plain linears and MoE expert banks).
+"""Integer deployment export (port of ``export_quantized`` and
+``snap_params_po2`` in ``repro/quant/export.py``: plain linears and MoE
+expert banks).
 
 Every ``{"w": ..., "qp": QuantState}`` subtree becomes ``{"qp":
 DeployedQuantState}`` (the float weight is dropped), and every MoE
@@ -17,6 +18,10 @@ A tied head's ``{"table", "qp_head": QuantState}`` keeps its float table
     product-scale units, clamped to >= 0 (the shifter cannot
     left-shift-quantize).
 
+``snap_params_po2`` is the fake-quant reference of the export: the same
+tree with every ``QuantState``'s ``ax``/``aw`` snapped to
+``2^floor(log2 .)``, the scales whose exponents the export takes.
+
 ``floor(log2 .)`` of ``aw`` and ``ax`` is the exact
 ``core.po2.floor_log2``, not a float ``log2``.  ``ap`` is already a float
 log2 (``core.layers.calibrate_dense``), so ``floor(ap)`` can differ from
@@ -30,7 +35,7 @@ import dataclasses
 import torch
 
 from repro_torch.core import (DeployedQuantState, QuantState, effective_n_p,
-                              floor_log2, po2_quantize_codes,
+                              floor_log2, po2_quantize_codes, pow2,
                               tied_head_weight)
 
 
@@ -162,3 +167,24 @@ def export_quantized(params, policy=None):
                 for k, v in tree.items() if k not in banks}
 
     return walk(params), report
+
+
+def _snap_one(qp: QuantState) -> QuantState:
+    """Snap ax/aw to the exported PO2 grid (fake-quant reference view)."""
+    aw = pow2(floor_log2(torch.clamp(qp.aw.float(), min=1e-30)))
+    ax = pow2(floor_log2(torch.clamp(qp.ax.float(), min=1e-30)))
+    return dataclasses.replace(qp, aw=aw, ax=ax)
+
+
+@torch.no_grad()
+def snap_params_po2(params):
+    """Fake-quant reference matching the export: same tree, with every
+    ``QuantState``'s ax/aw snapped to ``2^floor(log2 .)``.  Running the
+    model on this tree reproduces the deployed integer path."""
+    def walk(tree):
+        if isinstance(tree, QuantState):
+            return _snap_one(tree)
+        if isinstance(tree, dict):
+            return {k: walk(v) for k, v in tree.items()}
+        return tree
+    return walk(params)

@@ -1,5 +1,12 @@
-"""Capture-based calibration (port of ``calibrate_model`` and
-``policy_presets`` in ``repro/quant/qat.py``, dense branch).
+"""QAT integration: capture-based calibration, distillation, named
+policies (port of ``repro/quant/qat.py``, dense branch).
+
+``distill_loss`` is the QAT-with-teacher objective (KL(teacher ||
+student) on logits mixed with cross entropy), ``make_distill_loss_fn``
+its ``(params, batch) -> loss`` with the teacher's forward under
+``torch.no_grad``, and ``quant_variants`` the named uniform policies of
+the gs sweep.  Training itself differentiates through the same
+fake-quant forward (``repro_torch.train``); calibration is forward only.
 
 ``calibrate_model`` runs the model one unit at a time with fake-quant
 linears.  ``quant_dense`` appends a ``TapRecord`` per linear to the
@@ -16,6 +23,8 @@ calibrated on the final-norm hidden states over
 from __future__ import annotations
 
 import torch
+
+import torch.nn.functional as F
 
 from repro_torch.core import (QuantConfig, QuantState, calibrate_dense,
                               quant_params_init, tied_head_weight)
@@ -107,3 +116,41 @@ def policy_presets() -> dict:
             ("*.ffn.*", apsq(gs=2, n_p=8)),
             default=QuantConfig.w8a8()),
     }
+
+
+def distill_loss(student_logits: torch.Tensor, teacher_logits: torch.Tensor,
+                 labels: torch.Tensor, alpha: float = 0.5,
+                 temperature: float = 2.0) -> torch.Tensor:
+    """alpha * KL(teacher || student) * T^2 + (1 - alpha) * CE(labels)."""
+    from repro_torch.models.model import lm_loss   # lazy: models import us
+    t = temperature
+    sl = F.log_softmax(student_logits.float() / t, dim=-1)
+    tl = F.softmax(teacher_logits.float() / t, dim=-1)
+    kl = torch.sum(tl * (torch.log(torch.clamp(tl, min=1e-20)) - sl), dim=-1)
+    ce = lm_loss(student_logits, labels)
+    return alpha * kl.mean() * (t * t) + (1 - alpha) * ce
+
+
+def make_distill_loss_fn(cfg_student, cfg_teacher, teacher_params,
+                         alpha: float = 0.5, temperature: float = 2.0):
+    """(student_params, batch) -> loss against a frozen full-precision
+    teacher's logits (computed without autograd)."""
+    from repro_torch.models.model import forward
+
+    def loss_fn(params, batch):
+        s_logits = forward(params, cfg_student, batch["tokens"])
+        with torch.no_grad():
+            t_logits = forward(teacher_params, cfg_teacher, batch["tokens"])
+        return distill_loss(s_logits, t_logits, batch["labels"], alpha,
+                            temperature)
+    return loss_fn
+
+
+def quant_variants(gs_values=(1, 2, 3, 4), n_p: int = 8) -> dict:
+    """Named uniform policies: W8A8 baseline, APSQ at each gs, and PSQ."""
+    out = {"baseline_w8a8": QuantPolicy.uniform(QuantConfig.w8a8())}
+    for gs in gs_values:
+        out[f"apsq_gs{gs}"] = QuantPolicy.uniform(
+            QuantConfig.apsq(gs=gs, n_p=n_p))
+    out["psq"] = QuantPolicy.uniform(QuantConfig.psq(n_p=n_p))
+    return out

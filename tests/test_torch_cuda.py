@@ -28,6 +28,11 @@ machine without JAX:
 * A deployed ``moe_ffn`` on the card makes no host round trip.
 * The paged-cache scatter leaves the same pool on the card as the
   CPU's sequential scatter, though table rows repeat the null page.
+* Quantization-aware training (fake quant, plain PyTorch, TF32 off):
+  ``apsq_matmul`` and ``quant_dense`` gradients on the card equal the
+  CPU's on the PO2 grid (x and w bit-equal, scales within their sums'
+  order), and one 2-layer train step on the card agrees with the CPU's
+  within the bound its docstring states.
 """
 import numpy as np
 import pytest
@@ -575,3 +580,144 @@ def test_scatter_pages_on_card_equals_sequential_cpu(cuda):
         got = _scatter_pages(pages.to(cuda), table.to(cuda),
                              gathered.to(cuda))
         assert torch.equal(got.cpu(), want)
+
+
+# ---------------------------------------------------------------------------
+# Quantization-aware training on the card (fake quant: plain PyTorch)
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def no_tf32(cuda):
+    """Float32 products in full precision (fake quant needs exact tile
+    sums); the flags are restored after the test."""
+    old = (torch.backends.cuda.matmul.allow_tf32,
+           torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    yield cuda
+    (torch.backends.cuda.matmul.allow_tf32,
+     torch.backends.cudnn.allow_tf32) = old
+
+
+def _grads(fn, args, dev, ct):
+    leaves = [torch.tensor(a, device=dev, requires_grad=True) for a in args]
+    y = fn(*leaves)
+    (y * torch.tensor(ct, device=dev)).sum().backward()
+    return y.detach().cpu(), [t.grad.cpu() for t in leaves]
+
+
+def _scale_close(got, want):
+    """A scale's gradient is a sum over the tensor: the card adds it in
+    another order than the CPU.  Within 1e-5 of the leaf's largest."""
+    top = float(want.abs().max()) + 1e-12
+    assert float((got - want).abs().max()) <= 1e-5 * top
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_p,gs", [(8, 1), (8, 3), (8, 8), (6, 4)])
+def test_apsq_matmul_grads_on_card_equal_cpu_on_po2_grid(no_tf32, n_p, gs):
+    """Integer-valued x, w and cotangents at integer log2 scales: every
+    product and sum of the forward and of the x/w gradients is exact in
+    float32, so those are bit-equal on the card and the CPU."""
+    from repro_torch.core import apsq_matmul
+    rng = np.random.default_rng(n_p * 10 + gs)
+    x = rng.integers(-8, 9, (3, 5, 96)).astype(np.float32)
+    w = rng.integers(-8, 9, (96, 40)).astype(np.float32)
+    la = rng.integers(2, 7, n_p).astype(np.float32)
+    ct = rng.integers(-3, 4, (3, 5, 40)).astype(np.float32)
+
+    def fn(x, w, la):
+        return apsq_matmul(x, w, la, n_p=n_p, gs=gs)
+
+    y_cpu, g_cpu = _grads(fn, (x, w, la), "cpu", ct)
+    y_gpu, g_gpu = _grads(fn, (x, w, la), no_tf32, ct)
+    assert torch.equal(y_gpu, y_cpu)
+    assert torch.equal(g_gpu[0], g_cpu[0])
+    assert torch.equal(g_gpu[1], g_cpu[1])
+    _scale_close(g_gpu[2], g_cpu[2])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["apsq", "psq", "none"])
+def test_quant_dense_grads_on_card_equal_cpu_on_po2_grid(no_tf32, mode):
+    """Per-channel power-of-two ``aw``, ``ax`` a power of two, integer
+    ``ap``, integer cotangents: x and w gradients bit-equal, the scales'
+    within their sums' order."""
+    from repro_torch.core import QuantConfig, QuantState, quant_dense
+    spec = {"apsq": QuantConfig.apsq(gs=3, n_p=8),
+            "psq": QuantConfig.psq(n_p=8),
+            "none": QuantConfig.w8a8()}[mode]
+    rng = np.random.default_rng(7)
+    x = (rng.standard_normal((2, 7, 64)) * 2).astype(np.float32)
+    w = (rng.standard_normal((64, 24)) * 0.2).astype(np.float32)
+    aw = (2.0 ** rng.integers(-9, -6, 24)).astype(np.float32)
+    ax = np.float32(2.0 ** -5)
+    ap = rng.integers(-4, 0, 8).astype(np.float32)
+    ct = rng.integers(-3, 4, (2, 7, 24)).astype(np.float32)
+    args = (x, w, aw, ax) + ((ap,) if mode != "none" else ())
+
+    def fn(x, w, aw, ax, ap=None):
+        return quant_dense(x, w, QuantState(aw=aw, ax=ax, ap=ap, spec=spec,
+                                            name="l"))
+
+    y_cpu, g_cpu = _grads(fn, args, "cpu", ct)
+    y_gpu, g_gpu = _grads(fn, args, no_tf32, ct)
+    assert torch.equal(y_gpu, y_cpu)
+    assert torch.equal(g_gpu[0], g_cpu[0])
+    assert torch.equal(g_gpu[1], g_cpu[1])
+    for got, want in zip(g_gpu[2:], g_cpu[2:]):
+        _scale_close(got, want)
+
+
+@pytest.mark.cuda
+def test_two_layer_train_step_on_card_against_cpu(no_tf32):
+    """``tinyllama-smoke`` (2 layers, float32) under APSQ gs=2 n_p=8,
+    calibrated on the CPU and put on the PO2 grid (``snap_params_po2``,
+    PSUM scales floored), one train step with two microbatches on the
+    card and on the CPU from the same params and batch.  Norms, RoPE,
+    softmax and SiLU round differently on the two devices, so an
+    activation code can flip; held at: loss within 1e-5 (relative),
+    gradient norm within 1e-4, the gradient tree (``m``) within 1% of
+    its norm in L2."""
+    import dataclasses
+    import math
+    from repro_torch.checkpoint import to_device
+    from repro_torch.configs import get_smoke
+    from repro_torch.core import QuantConfig, QuantState
+    from repro_torch.data import DataConfig, SyntheticCorpus
+    from repro_torch.models import init_lm, tree_leaves
+    from repro_torch.optim import OptimConfig, init_opt_state
+    from repro_torch.quant import calibrate_model, snap_params_po2
+    from repro_torch.train import TrainConfig, make_train_step
+
+    def floor_ap(t):
+        if isinstance(t, QuantState):
+            return dataclasses.replace(t, ap=torch.floor(t.ap))
+        if isinstance(t, dict):
+            return {k: floor_ap(v) for k, v in t.items()}
+        return t
+
+    cfg = get_smoke("tinyllama-1.1b").with_quant(QuantConfig.apsq(gs=2,
+                                                                  n_p=8))
+    batch = SyntheticCorpus(DataConfig(vocab=cfg.vocab, seq_len=32,
+                                       global_batch=4)).batch_at(0)
+    params = calibrate_model(init_lm(cfg, seed=0, device="cpu"), cfg,
+                             {"tokens": batch["tokens"]})
+    params = floor_ap(snap_params_po2(params))
+    ocfg = OptimConfig(lr=1e-3, warmup_steps=2, total_steps=10)
+    step = make_train_step(cfg, ocfg, TrainConfig(microbatches=2))
+    out = {}
+    for dev in ("cpu", no_tf32):
+        p = to_device(params, dev)
+        b = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+        _, st, stats = step(p, init_opt_state(p, ocfg), b)
+        out[str(dev)] = (stats, {k: t.cpu() for k, t in
+                                 tree_leaves(st["m"])})
+    (s_cpu, m_cpu), (s_gpu, m_gpu) = out["cpu"], out[str(no_tf32)]
+    loss, gn = float(s_gpu["loss"]), float(s_gpu["grad_norm"])
+    assert abs(loss - float(s_cpu["loss"])) <= 1e-5 * abs(loss), loss
+    assert abs(gn - float(s_cpu["grad_norm"])) <= 1e-4 * gn, gn
+    diff = math.sqrt(sum(float(((m_gpu[k] - v) ** 2).sum())
+                         for k, v in m_cpu.items()))
+    norm = math.sqrt(sum(float((v ** 2).sum()) for v in m_cpu.values()))
+    assert diff <= 1e-2 * norm, diff / norm
