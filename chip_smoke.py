@@ -25,7 +25,10 @@ Phases (each exits non-zero on failure):
              exponents [E, n_p] and [E, n_p, N], and at 8-slot decode
              routing (``routed``: 8 tokens' seeded top-8 choices through
              the MoE dispatch at capacity 2, the experts no token chose
-             all zero; its bound counts the live experts' weights);
+             all zero; its bound counts the live experts' weights); the
+             APSQ one at Qwen3-MoE's banks (E=128, (K, N) in {(4096,
+             1536), (1536, 4096)}) at M=2 and at 4-slot decode routing
+             (4 tokens' top-8 at capacity 1);
              INT8-KV attention (hd=64, Hq=32, Hkv=4 and
              hd=128, Hq=Hkv=16; decode and prefill-chunk forms, the
              serving shapes, decode over 1024 and 4096 positions, a chunk
@@ -116,13 +119,31 @@ Phases (each exits non-zero on failure):
              last 3 losses at least 0.5 below the first.  Records the
              median step time, training tokens/s, peak memory and the
              loss trajectory; ``--profile`` traces one more step.
+  moe_train  the ``train`` phase's flow on full-width OLMoE-1B-7B (d=2048,
+             64 experts top-8, vocab 50304, bf16) cut to 4 of 16 layers
+             (device memory: float32 accumulators and the old and new
+             AdamW moments of 1.88 B parameters peak at 52 GB), the
+             router float: Trainer.fit 10 steps (cap 160 per
+             microbatch) -> save -> restore (bit-equal) -> 2 resumed
+             steps == 2 in memory (bit-equal) -> export: snapped fake
+             quant vs the integer path within 1e-4, equal greedy tokens
+             -> 4 requests served, then the ``moe_serve`` engine checks
+             (``moe_engine_checks``).
+  qwen3_2l   Qwen3-MoE-235B-A22B at full width (d=4096, 64/4 heads at
+             hd=128: an attention wider than the model, 128 experts
+             top-8, expert d_ff 1536, vocab 151936, bf16) cut to 2 of 94
+             layers, mix2_ffn4: init -> calibrate -> export -> every
+             deployed GEMM (the expert banks too) bit-exact against its
+             plain version -> 4 requests on 4 slots -> the ``moe_serve``
+             engine checks.
 
-The main path runs in nine configurations, each its own path:
+The main path runs in eleven configurations, each its own path:
 ``serve`` (mix2_ffn4: every layer APSQ), ``w8a8`` (ffn_only: W8A8
 attention projections), ``moe_serve`` (OLMoE, mix2_ffn4), ``moe_w8a8``
 (OLMoE, W8A8), ``load`` (the restored JAX export), ``sc2_serve``,
-``dense_2l``'s two models and ``train`` (its export -> serve tail; the
-training step itself is plain PyTorch and reaches no kernel).  Launch
+``dense_2l``'s two models, ``train`` and ``moe_train`` (their export ->
+serve tails; the training step itself is plain PyTorch and reaches no
+kernel) and ``qwen3_2l``.  Launch
 counts are zeroed just before each and read just after; every kernel of
 each path must have launched.  The line before the
 last holds the per-kernel record: ``launches`` is the count of the path
@@ -148,7 +169,8 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 INT8_OPS_PER_S = 1979e12       # H100 SXM int8 tensor cores, dense
 F32_OPS_PER_S = 67e12          # H100 SXM float32 outside the tensor cores
 PHASES = ("build", "kernels", "reference", "serve", "w8a8", "moe_reference",
-          "moe_serve", "moe_w8a8", "load", "sc2_serve", "dense_2l", "train")
+          "moe_serve", "moe_w8a8", "load", "sc2_serve", "dense_2l", "train",
+          "moe_train", "qwen3_2l")
 FIXTURE = os.path.join(ROOT, "tests", "fixtures",
                        "jax_export_starcoder2_smoke")
 NO_BATCHED_INT8_MM = ("none: PyTorch has no single call for a batched "
@@ -196,6 +218,8 @@ PATH_KERNELS = {
     "dense_2l/deepseek-7b": ("apsq_matmul", "apsq_matmul_m1",
                              "int8_kv_attention"),
     "train": ("apsq_matmul", "apsq_matmul_m1", "int8_kv_attention"),
+    "moe_train": ("apsq_matmul", "apsq_expert_matmul", "int8_kv_attention"),
+    "qwen3_2l": ("apsq_matmul", "apsq_expert_matmul", "int8_kv_attention"),
 }
 
 
@@ -242,8 +266,9 @@ def timed_ms(torch, fn, n_inputs: int, iters: int = 30,
 
 
 def device_ms(torch, fn, n_inputs: int, iters: int = 30) -> float:
-    """Mean device ms per call of ``fn(i)``: the calls are captured in a
-    CUDA graph and the replay is timed, so host dispatch drops out."""
+    """Device ms per call of ``fn(i)``: the calls are captured in a CUDA
+    graph, so host dispatch drops out; the median of 5 replays, each
+    timed alone."""
     fn(0)
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
@@ -258,14 +283,17 @@ def device_ms(torch, fn, n_inputs: int, iters: int = 30) -> float:
     torch.cuda.current_stream().wait_stream(stream)
     graph.replay()
     torch.cuda.synchronize()
-    a = torch.cuda.Event(enable_timing=True)
-    b = torch.cuda.Event(enable_timing=True)
-    a.record()
-    graph.replay()
-    b.record()
-    torch.cuda.synchronize()
+    times = []
+    for _ in range(5):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b) / iters)
     del graph
-    return a.elapsed_time(b) / iters
+    return sorted(times)[2]
 
 
 def both_ms(torch, fn, n_inputs: int, iters: int = 30):
@@ -593,7 +621,7 @@ def expert_checks(torch, records: dict) -> list:
     """The fused expert GEMMs at OLMoE's shapes (E=64 experts; M is the
     capacity: 2 at 8-slot decode, 3 at a 16-token prefill chunk), every
     expert live, and at 8-slot decode routing (``routed``: the experts no
-    token chose have zero rows)."""
+    token chose have zero rows); the APSQ one at Qwen3-MoE's (E=128)."""
     from repro_torch.kernels.apsq_matmul import ops, ref
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(2)
@@ -642,6 +670,33 @@ def expert_checks(torch, records: dict) -> list:
                     records[name]["at_routed"] = dict(
                         row[key], shape=f"{shape_s}, 8 tokens' top-8 "
                         f"choices at capacity 2")
+        del w
+    # Qwen3-MoE's banks (E=128; wi/wg [4096, 1536], wo [1536, 4096]; an
+    # 805 MB bank) at M=2, and at 4-slot decode routing (4 tokens' top-8
+    # choices at capacity 1: the bound counts the live experts only)
+    E = 128
+    for k, n in ((4096, 1536), (1536, 4096)):
+        w = torch.randint(-128, 128, (E, k, n), generator=gen, device=dev,
+                          dtype=torch.int8)
+        for m in (2, "routed"):
+            if m == "routed":
+                x = routed_codes(torch, gen, dev, E, k, tokens=4, cap=1)
+            else:
+                x = torch.randint(-128, 128, (E, m, k), generator=gen,
+                                  device=dev, dtype=torch.int8)
+            exps = torch.randint(0, 14, (E, n_p, n), generator=gen,
+                                 device=dev, dtype=torch.int32)
+            shape_s = f"E={E} M={x.shape[1]} K={k} N={n}"
+            rec = expert_rec(torch, ops, ref, x, w, exps, gs, errors,
+                             f"expert APSQ {shape_s} exps cols")
+            rows.append({"E": E, "M": m, "K": k, "N": n, "n_p": n_p,
+                         "gs": gs, "model": "qwen3-moe-235b-a22b",
+                         "apsq_expert_matmul_cols": rec})
+            tag = "routed" if m == "routed" else f"m{m}"
+            records["apsq_expert_matmul"][f"at_qwen3_k{k}_n{n}_{tag}"] = \
+                dict(rec, shape=f"{shape_s} n_p={n_p} gs={gs} exps "
+                     f"[E,n_p,N]" + (", 4 tokens' top-8 choices at "
+                                     "capacity 1" if m == "routed" else ""))
         del w
     return rows, errors
 
@@ -894,9 +949,12 @@ def tokens_digest(done) -> str:
 
 def serve_all(torch, _build, dev, eng, reqs, profile: bool,
               info: dict) -> list:
-    """Run ``reqs`` to the end on ``eng``; with ``profile``, trace the
-    third heartbeat (device activity only: cheap).  Records the serve
-    time, the launch counts and the engine's counters in ``info``."""
+    """Run ``reqs`` to the end on ``eng``, the path's zeroed run: the
+    launch counts are set to 0 here and read at the end.  With
+    ``profile``, trace the third heartbeat (device activity only:
+    cheap).  Records the serve time, the launch counts and the engine's
+    counters in ``info``."""
+    _build.reset_launch_counts()
     t0 = time.perf_counter()
     if profile:
         from torch.profiler import ProfilerActivity
@@ -990,7 +1048,6 @@ def phase_serve(torch, np, _build, cfg, dev, profile: bool = False):
     cfg = cfg.with_quant(policy_presets()["mix2_ffn4"])
     rng = np.random.default_rng(12)
     info = {}
-    _build.reset_launch_counts()
     t0 = time.perf_counter()
     params = init_lm(cfg, seed=0, device=dev)
     sync(torch, dev)
@@ -1031,7 +1088,6 @@ def phase_w8a8(torch, np, _build, cfg, dev):
     from repro_torch.serving import PagedServingEngine, Request
     cfg = cfg.scaled(n_layers=2).with_quant(policy_presets()["ffn_only"])
     rng = np.random.default_rng(13)
-    _build.reset_launch_counts()
     params = init_lm(cfg, seed=1, device=dev)
     params = calibrate_model(params, cfg, {
         "tokens": rng.integers(0, cfg.vocab, size=(2, 32))})
@@ -1039,6 +1095,7 @@ def phase_w8a8(torch, np, _build, cfg, dev):
     eng = PagedServingEngine.from_exported(
         params, cfg, max_batch=4, n_pages=4 * 4 + 1, page_size=16,
         prefill_chunk=16, decode_horizon=4, max_pages_per_slot=4)
+    _build.reset_launch_counts()        # the path's zeroed run
     done = eng.run(reqs)
     sync(torch, dev)
     info = {"launches": dict(_build.launch_counts), "requests": len(done),
@@ -1060,6 +1117,61 @@ def first_divergence(a: dict, b: dict):
     return None
 
 
+def moe_engine_checks(torch, deploy, cfg, reqs, kw, dev, info) -> list:
+    """Engines on the card serving ``reqs`` with the same params and
+    engine settings ``kw``.  Held to equal greedy tokens: the CUDA GEMM
+    kernels with the plain attention against the oracle (the integer
+    kernels are exact, so every float op downstream is the same), and
+    the cuda engine against a second run of itself (deterministic).  The
+    cuda engine against the oracle is reported: its attention kernel
+    agrees with the plain version only within rtol 2e-5, and under bf16
+    rounding, a top-8 routing near a tie and greedy argmax that can
+    change a token.  Returns the problems; records in ``info``."""
+    from repro_torch.serving import PagedServingEngine, Request
+    problems, sub = [], {}
+    for name, backend in (("cuda", "cuda"), ("cuda_again", "cuda"),
+                          ("cuda_gemms", gemm_kernels_plain_attention()),
+                          ("oracle", "oracle")):
+        t0 = time.perf_counter()
+        e = PagedServingEngine(deploy, cfg, backend=backend, **kw)
+        outs = e.run([Request(uid=r.uid, tokens=r.tokens,
+                              max_new_tokens=r.max_new_tokens)
+                      for r in reqs])
+        sync(torch, dev)
+        sub[name] = {r.uid: r.out for r in outs}
+        info[f"sub_{name}_s"] = time.perf_counter() - t0
+    info["sub_tokens"] = sum(len(o) for o in sub["oracle"].values())
+    for name, ref_name, held in (("cuda_gemms", "oracle", True),
+                                 ("cuda_again", "cuda", True),
+                                 ("cuda", "oracle", False)):
+        a, b = sub[name], sub[ref_name]
+        div = first_divergence(a, b)
+        key = f"{name}_vs_{ref_name}"
+        info[key] = {"equal": div is None, "equal_tokens": sum(
+            x == y for u in b for x, y in zip(a.get(u, []), b[u]))}
+        if div is not None:
+            uid, i = div
+            info[key]["first_divergence"] = {
+                "request": uid, "step": i, name: a[uid][i:i + 1],
+                ref_name: b[uid][i:i + 1]}
+            if held:
+                problems.append(f"{name} engine != {ref_name} engine: "
+                                f"{info[key]['first_divergence']}")
+    # how far the cuda and oracle backends' logits lie apart on the same
+    # single-slot forward, beside the oracle's top-2 margin: each
+    # request's prompt, and the prefix where the engines diverged
+    prefixes = {f"prompt {r.uid}": list(r.tokens) for r in reqs}
+    div = info["cuda_vs_oracle"].get("first_divergence")
+    if div:
+        r = next(r for r in reqs if r.uid == div["request"])
+        prefixes["divergence"] = (list(r.tokens)
+                                  + sub["oracle"][r.uid][:div["step"]])
+    info["cuda_vs_oracle_logits"] = {
+        k: logit_gap(torch, deploy, cfg, toks, dev)
+        for k, toks in prefixes.items()}
+    return problems
+
+
 def phase_moe_serve(torch, np, _build, cfg, dev, profile: bool = False):
     """Full OLMoE-1B-7B: init -> calibrate -> export -> serve 16
     requests on 8 slots; then a cuda engine and an oracle engine on the
@@ -1071,7 +1183,6 @@ def phase_moe_serve(torch, np, _build, cfg, dev, profile: bool = False):
     cfg = cfg.with_quant(policy_presets()["mix2_ffn4"])
     rng = np.random.default_rng(21)
     info = {}
-    _build.reset_launch_counts()
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -1102,55 +1213,8 @@ def phase_moe_serve(torch, np, _build, cfg, dev, profile: bool = False):
     if len(done) != 16:
         problems.append(f"{len(done)} of 16 requests finished")
     problems += logits_check(torch, deploy, cfg, reqs[2].tokens, dev, info)
-    # Engines on the card, 4 requests, 8 slots, same params.  Held to
-    # equal greedy tokens: the CUDA GEMM kernels with the plain attention
-    # against the oracle (the integer kernels are exact, so every float
-    # op downstream is the same), and the cuda engine against a second
-    # run of itself (deterministic).  The cuda engine against the oracle
-    # is reported: its attention kernel agrees with the plain version
-    # only within rtol 2e-5, and under bf16 rounding, a top-8 routing
-    # near a tie and greedy argmax that can change a token.
-    sub = {}
-    for name, backend in (("cuda", "cuda"), ("cuda_again", "cuda"),
-                          ("cuda_gemms", gemm_kernels_plain_attention()),
-                          ("oracle", "oracle")):
-        t0 = time.perf_counter()
-        e = PagedServingEngine(deploy, cfg, backend=backend, **kw)
-        outs = e.run([Request(uid=r.uid, tokens=r.tokens,
-                              max_new_tokens=r.max_new_tokens)
-                      for r in reqs[:4]])
-        sync(torch, dev)
-        sub[name] = {r.uid: r.out for r in outs}
-        info[f"sub_{name}_s"] = time.perf_counter() - t0
-    info["sub_tokens"] = sum(len(o) for o in sub["oracle"].values())
-    for name, ref_name, held in (("cuda_gemms", "oracle", True),
-                                 ("cuda_again", "cuda", True),
-                                 ("cuda", "oracle", False)):
-        a, b = sub[name], sub[ref_name]
-        div = first_divergence(a, b)
-        key = f"{name}_vs_{ref_name}"
-        info[key] = {"equal": div is None, "equal_tokens": sum(
-            x == y for u in b for x, y in zip(a.get(u, []), b[u]))}
-        if div is not None:
-            uid, i = div
-            info[key]["first_divergence"] = {
-                "request": uid, "step": i, name: a[uid][i:i + 1],
-                ref_name: b[uid][i:i + 1]}
-            if held:
-                problems.append(f"{name} engine != {ref_name} engine: "
-                                f"{info[key]['first_divergence']}")
-    # how far the cuda and oracle backends' logits lie apart on the same
-    # single-slot forward, beside the oracle's top-2 margin: each
-    # request's prompt, and the prefix where the engines diverged
-    prefixes = {f"prompt {r.uid}": list(r.tokens) for r in reqs[:4]}
-    div = info["cuda_vs_oracle"].get("first_divergence")
-    if div:
-        r = reqs[div["request"]]
-        prefixes["divergence"] = (list(r.tokens)
-                                  + sub["oracle"][r.uid][:div["step"]])
-    info["cuda_vs_oracle_logits"] = {
-        k: logit_gap(torch, deploy, cfg, toks, dev)
-        for k, toks in prefixes.items()}
+    problems += moe_engine_checks(torch, deploy, cfg, reqs[:4], kw, dev,
+                                  info)
     return info, problems
 
 
@@ -1203,7 +1267,6 @@ def phase_moe_w8a8(torch, np, _build, cfg, dev):
     from repro_torch.serving import PagedServingEngine, Request
     cfg = cfg.scaled(n_layers=2).with_quant(QuantConfig.w8a8())
     rng = np.random.default_rng(22)
-    _build.reset_launch_counts()
     params = init_lm(cfg, seed=1, device=dev)
     params = calibrate_model(params, cfg, {
         "tokens": rng.integers(0, cfg.vocab, size=(2, 32))})
@@ -1211,6 +1274,7 @@ def phase_moe_w8a8(torch, np, _build, cfg, dev):
     eng = PagedServingEngine.from_exported(
         params, cfg, max_batch=4, n_pages=4 * 4 + 1, page_size=16,
         prefill_chunk=16, decode_horizon=4, max_pages_per_slot=4)
+    _build.reset_launch_counts()        # the path's zeroed run
     done = eng.run(reqs)
     sync(torch, dev)
     info = {"launches": dict(_build.launch_counts), "requests": len(done),
@@ -1234,15 +1298,16 @@ def release(torch) -> None:
 
 def deployed_gemm_checks(torch, tree, errors: list) -> int:
     """Every deployed GEMM of ``tree`` (on the card) on random activation
-    codes at M = 3 and 8, against its plain version on the same codes;
-    returns how many layers were held."""
+    codes at M = 3 and 8 (an expert bank: M rows for each expert),
+    against its plain version on the same codes; returns how many layers
+    were held."""
     from repro_torch.core import DeployedQuantState, psum_group_size
     from repro_torch.kernels.apsq_matmul import ops, ref
-    gen = torch.Generator(device="cuda").manual_seed(4)
+    gen = None
     n = 0
 
     def walk(node, path):
-        nonlocal n
+        nonlocal n, gen
         if isinstance(node, dict):
             for k, v in node.items():
                 walk(v, f"{path}.{k}" if path else k)
@@ -1251,18 +1316,31 @@ def deployed_gemm_checks(torch, tree, errors: list) -> int:
             return
         n += 1
         w = node.w_codes
+        bank = w.dim() == 3
+        if gen is None:
+            gen = torch.Generator(device=w.device).manual_seed(4)
         for m in (3, 8):
-            x = torch.randint(-128, 128, (m, w.shape[0]), generator=gen,
-                              device="cuda", dtype=torch.int8)
-            if node.psum_exps is None:
+            x = torch.randint(-128, 128, w.shape[:-2] + (m, w.shape[-2]),
+                              generator=gen, device=w.device,
+                              dtype=torch.int8)
+            if node.psum_exps is None and bank:
+                got = ops.baseline_expert_matmul_int8(x, w)
+                want = ref.baseline_expert_matmul_ref(x, w)
+            elif node.psum_exps is None:
                 got = ops.baseline_matmul_int8(x, w)
                 want = ref.baseline_matmul_ref(x, w)
             else:
-                n_p = int(node.psum_exps.shape[0])
+                n_p = int(node.psum_exps.shape[1 if bank else 0])
                 gs = psum_group_size(node.spec, n_p)
-                got = ops.apsq_matmul_int8(x, w, node.psum_exps, gs=gs)
-                want = ref.apsq_matmul_ref(x, w, node.psum_exps, n_p=n_p,
-                                           gs=gs)
+                if bank:
+                    got = ops.apsq_expert_matmul_int8(x, w, node.psum_exps,
+                                                      gs=gs)
+                    want = ref.apsq_expert_matmul_ref(x, w, node.psum_exps,
+                                                      gs=gs)
+                else:
+                    got = ops.apsq_matmul_int8(x, w, node.psum_exps, gs=gs)
+                    want = ref.apsq_matmul_ref(x, w, node.psum_exps,
+                                               n_p=n_p, gs=gs)
             if not torch.equal(got, want):
                 errors.append(f"deployed {path} at M={m}: max|err|="
                               f"{int((got.long() - want.long()).abs().max())}")
@@ -1378,7 +1456,6 @@ def phase_sc2_serve(torch, np, _build, cfg, dev, profile: bool = False):
     rng = np.random.default_rng(31)
     info = {}
     torch.cuda.empty_cache()        # 15 B parameters: the card to itself
-    _build.reset_launch_counts()
     t0 = time.perf_counter()
     params = init_lm(cfg, seed=0, device=dev)
     sync(torch, dev)
@@ -1447,7 +1524,6 @@ def phase_dense_2l(torch, np, _build, configs, dev):
         cfg = full.scaled(n_layers=2).with_quant(
             policy_presets()["mix2_ffn4"])
         rng = np.random.default_rng(40 + seed)
-        _build.reset_launch_counts()
         params = init_lm(cfg, seed=seed, device=dev)
         params = calibrate_model(params, cfg, {
             "tokens": rng.integers(0, cfg.vocab, size=(2, 32))})
@@ -1458,6 +1534,7 @@ def phase_dense_2l(torch, np, _build, configs, dev):
                   max_pages_per_slot=4)
         single, _ = single_stream_check(torch, deploy, cfg, reqs[:1], kw,
                                         dev, probe_eos=False)
+        _build.reset_launch_counts()    # the path's zeroed run
         done = PagedServingEngine(deploy, cfg, max_batch=4,
                                   n_pages=4 * 4 + 1, **kw).run(reqs)
         sync(torch, dev)
@@ -1481,7 +1558,61 @@ def phase_dense_2l(torch, np, _build, configs, dev):
     return info, problems
 
 
+def phase_qwen3_2l(torch, np, _build, cfg, dev):
+    """Qwen3-MoE-235B-A22B at full width (d=4096, 64/4 heads at hd=128:
+    an attention wider than the model, 128 experts top-8, expert d_ff
+    1536, vocab 151936), cut to 2 of 94 layers, mix2_ffn4: init ->
+    calibrate -> export -> every deployed GEMM bit-exact against its
+    plain version -> 4 requests on 4 slots (the path's zeroed run) ->
+    the ``moe_serve`` engine checks."""
+    from repro_torch.models import init_lm
+    from repro_torch.quant import calibrate_model, export_quantized, \
+        policy_presets
+    from repro_torch.serving import PagedServingEngine, Request
+    cfg = cfg.scaled(n_layers=2).with_quant(policy_presets()["mix2_ffn4"])
+    rng = np.random.default_rng(61)
+    info, problems = {"config": cfg.name, "layers": cfg.n_layers}, []
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    params = init_lm(cfg, seed=0, device=dev)
+    sync(torch, dev)
+    info["init_s"] = time.perf_counter() - t0
+    info["params_gb"] = sum(t.numel() * t.element_size() for t in
+                            iter_tensors(params)) / 1e9
+    t0 = time.perf_counter()
+    params = calibrate_model(params, cfg, {
+        "tokens": rng.integers(0, cfg.vocab, size=(2, 32))})
+    deploy, report = export_quantized(params)
+    sync(torch, dev)
+    info["calibrate_export_s"] = time.perf_counter() - t0
+    info["peak_mem_export_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del params
+    release(torch)
+    info["int8_gb"] = sum(r["int8_bytes"] * r["count"]
+                          for r in report.values()) / 1e9
+    info["clamped_exps"] = sum(r["clamped_exps"] for r in report.values())
+    banks = [k for k, r in report.items() if "n_experts" in r]
+    info["expert_banks"] = len(banks)
+    info["deployed_gemms_held"] = deployed_gemm_checks(torch, deploy,
+                                                       problems)
+    reqs = make_requests(np, rng, 4, cfg.vocab, 3, 40, 8, 16, Request)
+    kw = dict(max_batch=4, n_pages=4 * 4 + 1, page_size=16,
+              prefill_chunk=16, decode_horizon=4, max_pages_per_slot=4)
+    done = serve_all(torch, _build, dev, PagedServingEngine(deploy, cfg,
+                                                            **kw),
+                     reqs, False, info)
+    info["peak_mem_gb"] = max(info["peak_mem_gb"] or 0.0,
+                              info["peak_mem_export_gb"])
+    if len(done) != 4:
+        problems.append(f"{len(done)} of 4 requests finished")
+    problems += logits_check(torch, deploy, cfg, reqs[0].tokens, dev, info)
+    problems += moe_engine_checks(torch, deploy, cfg, reqs, kw, dev, info)
+    problems += missing_launches("qwen3_2l", info["launches"])
+    return info, problems
+
+
 TRAIN_CKPT = os.path.join(ROOT, "_train_ckpt")    # git-ignored, removed
+MOE_TRAIN_LAYERS = 4
 
 
 def tree_bits_equal(torch, a, b) -> list:
@@ -1504,17 +1635,18 @@ def tree_bits_equal(torch, a, b) -> list:
 
 
 def phase_train(torch, np, _build, cfg, dev, steps: int = 10,
-                profile: bool = False):
+                profile: bool = False, path: str = "train"):
     """Full-width QAT: init -> calibrate -> Trainer.fit (APSQ gs=2 n_p=8,
     seq 256, batch 8, 2 microbatches) -> save -> restore (bit-equal) ->
     2 steps resumed from the checkpoint == 2 steps in memory (bit-equal)
     -> snap_params_po2 / export_quantized: the snapped fake-quant forward
     and the integer forward on the card agree (1e-4, same greedy tokens)
-    -> PagedServingEngine serves 4 requests, a max_batch=1 engine gives
-    request 0's tokens."""
+    -> PagedServingEngine serves 4 requests; a dense model: a
+    max_batch=1 engine gives request 0's tokens; a MoE model: the
+    ``moe_serve`` engine checks (``moe_engine_checks``)."""
     import dataclasses
     import shutil
-    from repro_torch.checkpoint import restore
+    from repro_torch.checkpoint import restore, to_device
     from repro_torch.core import QuantConfig
     from repro_torch.data import DataConfig, SyntheticCorpus, \
         device_put_batch
@@ -1526,7 +1658,8 @@ def phase_train(torch, np, _build, cfg, dev, steps: int = 10,
     from repro_torch.train import TrainConfig, Trainer, make_train_step
     problems = []
     info = {"allow_tf32": [torch.backends.cuda.matmul.allow_tf32,
-                           torch.backends.cudnn.allow_tf32]}
+                           torch.backends.cudnn.allow_tf32],
+            "config": cfg.name, "layers": cfg.n_layers}
     if any(info["allow_tf32"]):
         problems.append(f"TF32 is on {info['allow_tf32']}: the fake-quant "
                         "GEMM needs exact float32 tile sums")
@@ -1539,7 +1672,6 @@ def phase_train(torch, np, _build, cfg, dev, steps: int = 10,
     shutil.rmtree(TRAIN_CKPT, ignore_errors=True)
     tcfg = TrainConfig(microbatches=2, steps=steps, save_every=steps,
                        log_every=5, ckpt_dir=TRAIN_CKPT)
-    _build.reset_launch_counts()
     params = init_lm(cfg, seed=0, device=dev)
     params = calibrate_model(params, cfg,
                              {"tokens": corpus.batch_at(10**6)["tokens"]})
@@ -1598,16 +1730,20 @@ def phase_train(torch, np, _build, cfg, dev, steps: int = 10,
     for s in (steps, steps + 1):
         params, opt, _ = step_fn(params, opt,
                                  device_put_batch(corpus.batch_at(s), dev))
+    # held in host memory while the resumed run holds its own state
+    continuous = to_device({"params": params, "opt": opt}, "cpu")
+    del params, opt
+    release(torch)
     resumed = Trainer(cfg, ocfg, dataclasses.replace(tcfg, save_every=0),
                       device=dev)
     p_res, o_res = resumed.fit(data, steps=steps + 2, log=lambda m: None)
-    bad = tree_bits_equal(torch, {"params": params, "opt": opt},
-                          {"params": p_res, "opt": o_res})
+    bad = tree_bits_equal(torch, continuous, to_device(
+        {"params": p_res, "opt": o_res}, "cpu"))
     info["resume_bit_equal"] = not bad
     if bad:
         problems.append(f"2 steps resumed from the checkpoint differ from "
                         f"2 steps in memory at {bad[:4]}")
-    del params, opt, p_res, o_res
+    del continuous, p_res, o_res
     shutil.rmtree(TRAIN_CKPT, ignore_errors=True)
     release(torch)
 
@@ -1632,8 +1768,10 @@ def phase_train(torch, np, _build, cfg, dev, steps: int = 10,
     reqs = make_requests(np, rng, 4, cfg.vocab, 5, 48, 8, 16, Request)
     kw = dict(page_size=16, prefill_chunk=16, decode_horizon=8,
               max_pages_per_slot=4)
-    single, _ = single_stream_check(torch, deploy, cfg, reqs[:1], kw, dev,
-                                    probe_eos=False)
+    moe = cfg.mlp == "moe"
+    if not moe:
+        single, _ = single_stream_check(torch, deploy, cfg, reqs[:1], kw,
+                                        dev, probe_eos=False)
     eng = PagedServingEngine(deploy, cfg, max_batch=4, n_pages=4 * 4 + 1,
                              **kw)
     done = serve_all(torch, _build, dev, eng, reqs, False, info)
@@ -1642,10 +1780,13 @@ def phase_train(torch, np, _build, cfg, dev, steps: int = 10,
     outs = {r.uid: r.out for r in done}
     if len(done) != 4:
         problems.append(f"{len(done)} of 4 requests finished")
-    if outs.get(0) != single[0]:
+    if moe:     # MoE capacity comes from the whole call: no single stream
+        problems += moe_engine_checks(torch, deploy, cfg, reqs, dict(
+            kw, max_batch=4, n_pages=4 * 4 + 1), dev, info)
+    elif outs.get(0) != single[0]:
         problems.append(f"batched {outs.get(0)} != single-stream "
                         f"{single[0]}")
-    problems += missing_launches("train", info["launches"])
+    problems += missing_launches(path, info["launches"])
     return info, problems
 
 
@@ -1658,7 +1799,8 @@ def main() -> int:
     ap.add_argument("--profile", action="store_true",
                     help="trace one heartbeat of the serve, moe_serve and "
                          "sc2_serve phases' batched engines, and one train "
-                         "step of the train phase, with torch.profiler")
+                         "step of the train and moe_train phases, with "
+                         "torch.profiler")
     args = ap.parse_args()
     phases = [p for p in args.phases.split(",") if p]
     for p in phases:
@@ -1676,7 +1818,8 @@ def main() -> int:
         fail(f"{src}/repro_torch not found: run from a checkout of the repo")
     sys.path.insert(0, src)
     from repro_torch.configs import (chatglm3_6b, deepseek_7b, olmoe_1b_7b,
-                                     starcoder2_15b, tinyllama_1_1b)
+                                     qwen3_moe_235b_a22b, starcoder2_15b,
+                                     tinyllama_1_1b)
     from repro_torch.kernels import _build
     cuda = torch.device("cuda")
 
@@ -1739,6 +1882,19 @@ def main() -> int:
             info, problems = phase_train(torch, np, _build,
                                          tinyllama_1_1b.CONFIG, cuda,
                                          profile=args.profile)
+        elif phase == "moe_train":
+            # 4 of 16 layers: bf16 weights, float32 accumulators and the
+            # old and new AdamW moments peak at 52 GB there; 8 would not
+            # fit one card
+            info, problems = phase_train(
+                torch, np, _build,
+                olmoe_1b_7b.CONFIG.scaled(n_layers=MOE_TRAIN_LAYERS), cuda,
+                profile=args.profile, path="moe_train")
+            info["cut"] = (f"{MOE_TRAIN_LAYERS} of 16 layers (device "
+                           "memory)")
+        elif phase == "qwen3_2l":
+            info, problems = phase_qwen3_2l(torch, np, _build,
+                                            qwen3_moe_235b_a22b.CONFIG, cuda)
         if "launches" in info:
             launches[phase] = info["launches"]
         launches.update(info.pop("paths", {}))

@@ -13,10 +13,11 @@ quantizer node, keyed by its tree path.
 manifest dtype numpy cannot name without ``ml_dtypes`` (``bfloat16``
 loads as raw ``|V2`` records) is reinterpreted by its bits.  Quantizer
 nodes come back as the port's ``QuantState`` / ``DeployedQuantState``,
-and scan-stacked units are unstacked (``convert.unstack_units``), so the
-tree is the one ``convert_params`` gives for the same export.  Checkpoints
-from before the JAX package's quantizer metadata (its
-``_upgrade_legacy_quant``) are not read.
+and scan-stacked units are unstacked (``convert.unstack_units``) wherever
+a ``units`` subtree sits (an export's top, a trainer checkpoint's
+params and moments), so the tree is the one ``convert_params`` gives for
+the same export.  Checkpoints from before the JAX package's quantizer
+metadata (its ``_upgrade_legacy_quant``) are not read.
 
 ``save`` writes the same layout: leaves from ``models.model.tree_leaves``
 (the walker the optimizer uses), ``quant_states`` from the states it
@@ -272,6 +273,16 @@ def restore(ckpt_dir: str, step: int | None = None, *,
         key: _load_leaf(os.path.join(path, _key_to_fname(key)), meta, device)
         for key, meta in manifest["leaves"].items()})
     tree = _reify_quant_states(tree, manifest.get("quant_states") or {})
-    if isinstance(tree.get("units"), dict):
-        tree["units"] = unstack_units(tree["units"])
-    return tree, manifest
+    return _unstack_all_units(tree), manifest
+
+
+def _unstack_all_units(tree):
+    """Unstack every ``units`` subtree: an export's at the top, and a
+    trainer checkpoint's ``params/units``, ``opt/m/units`` and
+    ``opt/v/units`` (the JAX trainer keeps them scan-stacked)."""
+    if not isinstance(tree, dict):
+        return tree
+    out = {k: _unstack_all_units(v) for k, v in tree.items()}
+    if isinstance(out.get("units"), dict):
+        out["units"] = unstack_units(out["units"])
+    return out

@@ -7,7 +7,8 @@ _MODULES = {"tinyllama-1.1b": "tinyllama_1_1b",
             "olmoe-1b-7b": "olmoe_1b_7b",
             "starcoder2-15b": "starcoder2_15b",
             "chatglm3-6b": "chatglm3_6b",
-            "deepseek-7b": "deepseek_7b"}
+            "deepseek-7b": "deepseek_7b",
+            "qwen3-moe-235b-a22b": "qwen3_moe_235b_a22b"}
 
 ARCH_NAMES = tuple(_MODULES)
 

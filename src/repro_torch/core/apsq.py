@@ -20,19 +20,25 @@ Semantics of Algorithm 1 (0-based, group starts S = {0, gs, 2gs, ...}):
 Every PSUM quantizer is ``po2_quantize`` with its own LSQ gradient scale
 ``g`` from its tile's size, so autograd through these loops gives the
 gradients of JAX's autodiff of its scan (per-tile ``_fq``, the tails'
-sum, the peeled last group).  Outputs are dequantized fake-quant floats;
-the integer path is ``repro_torch.kernels.apsq_matmul``.
+sum, the peeled last group).  ``apsq_matmul`` on a MoE bank (tiles
+``[E, C, N]``, E experts' tiles) takes ``g`` from one expert's tile
+``[C, N]``, as JAX does under its vmap over the experts
+(``core.layers.quant_dense``).  Outputs are dequantized fake-quant
+floats; the integer path is ``repro_torch.kernels.apsq_matmul``.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
-from .quantizers import po2_quantize
+from .quantizers import lsq_gradient_scale, po2_quantize, qrange
 
 
-def _fq(x, log2_alpha, bits):
-    """PSUM fake quantizer: PO2-scale LSQ."""
-    return po2_quantize(x, log2_alpha, bits=bits, signed=True)
+def _fq(x, log2_alpha, bits, g=None):
+    """PSUM fake quantizer: PO2-scale LSQ (``g``: its gradient scale,
+    by default from ``x``'s size)."""
+    return po2_quantize(x, log2_alpha, bits=bits, signed=True, g=g)
 
 
 def _check_gs(gs: int):
@@ -67,27 +73,27 @@ def apsq_accumulate_reference(tiles: torch.Tensor, log2_alphas: torch.Tensor,
     raise AssertionError("unreachable")
 
 
-def _accumulate(tile, log2_alphas, n_p: int, gs: int, bits: int, carry):
+def _accumulate(tile, log2_alphas, n_p: int, gs: int, bits: int, carry, g):
     """Algorithm 1 in the scan form over ``tile(i)`` (the i-th PSUM
     tile), starting from the zero ``carry``."""
     n_groups = -(-n_p // gs)
     last_start = (n_groups - 1) * gs
     for g0 in range(0, last_start, gs):          # full groups (the scan)
-        ap_start = _fq(carry + tile(g0), log2_alphas[g0], bits)
+        ap_start = _fq(carry + tile(g0), log2_alphas[g0], bits, g)
         if gs > 1:
-            tails = torch.stack([_fq(tile(j), log2_alphas[j], bits)
+            tails = torch.stack([_fq(tile(j), log2_alphas[j], bits, g)
                                  for j in range(g0 + 1, g0 + gs)])
             carry = ap_start + tails.sum(dim=0)
         else:
             carry = ap_start
     i = last_start                               # the peeled last group
-    ap_start = _fq(carry + tile(i), log2_alphas[i], bits)
+    ap_start = _fq(carry + tile(i), log2_alphas[i], bits, g)
     if i == n_p - 1:
         return ap_start
     acc = ap_start
     for j in range(i + 1, n_p - 1):
-        acc = acc + _fq(tile(j), log2_alphas[j], bits)
-    return _fq(acc + tile(n_p - 1), log2_alphas[n_p - 1], bits)
+        acc = acc + _fq(tile(j), log2_alphas[j], bits, g)
+    return _fq(acc + tile(n_p - 1), log2_alphas[n_p - 1], bits, g)
 
 
 def apsq_accumulate(tiles: torch.Tensor, log2_alphas: torch.Tensor, gs: int,
@@ -96,7 +102,7 @@ def apsq_accumulate(tiles: torch.Tensor, log2_alphas: torch.Tensor, gs: int,
     numerically identical to the reference."""
     _check_gs(gs)
     return _accumulate(lambda i: tiles[i], log2_alphas, tiles.shape[0], gs,
-                       bits, torch.zeros_like(tiles[0]))
+                       bits, torch.zeros_like(tiles[0]), None)
 
 
 def psq_accumulate(tiles: torch.Tensor, log2_alphas: torch.Tensor,
@@ -112,7 +118,9 @@ def apsq_matmul(x: torch.Tensor, w: torch.Tensor, log2_alphas: torch.Tensor,
 
     x: [..., K] (fake-quantized activations), w: [K, N] (fake-quantized
     weights; or a MoE bank [E, K, N] against x [E, C, K]), log2_alphas:
-    [n_p].  K must be divisible by n_p.  On the card the tile products
+    [n_p].  K must be divisible by n_p.  Every PSUM quantizer's LSQ
+    gradient scale counts one tile, ``x.shape[:-1] + (N,)``; on a bank,
+    one expert's, ``x.shape[1:-1] + (N,)``.  On the card the tile products
     must be full float32 (``torch.backends.cuda.matmul.allow_tf32``
     False, PyTorch's default): PSUM rounding depends on exact tile sums.
     """
@@ -123,8 +131,12 @@ def apsq_matmul(x: torch.Tensor, w: torch.Tensor, log2_alphas: torch.Tensor,
         raise ValueError(f"log2_alphas must be [n_p]={n_p}, "
                          f"got {tuple(log2_alphas.shape)}")
     _check_gs(gs)
+    g = None                                    # from each tile's size
+    if w.dim() == 3:                            # a bank: one expert's tile
+        g = lsq_gradient_scale(math.prod(x.shape[1:-1]) * w.shape[-1],
+                               qrange(bits, True)[1])
     if n_p == 1:
-        return _fq(x @ w, log2_alphas[0], bits)
+        return _fq(x @ w, log2_alphas[0], bits, g)
     kt = K // n_p
 
     def tile(i):
@@ -132,4 +144,4 @@ def apsq_matmul(x: torch.Tensor, w: torch.Tensor, log2_alphas: torch.Tensor,
 
     carry = torch.zeros(x.shape[:-1] + (w.shape[-1],), dtype=torch.float32,
                         device=x.device)
-    return _accumulate(tile, log2_alphas, n_p, gs, bits, carry)
+    return _accumulate(tile, log2_alphas, n_p, gs, bits, carry, g)

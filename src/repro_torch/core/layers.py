@@ -22,7 +22,8 @@ import math
 import torch
 
 from .apsq import apsq_matmul
-from .quantizers import init_alpha_from, lsq_quantize, qrange
+from .quantizers import (init_alpha_from, lsq_gradient_scale, lsq_quantize,
+                         qrange)
 
 PSUM_MODES = ("none", "psq", "apsq")
 
@@ -182,17 +183,28 @@ def quant_dense(x: torch.Tensor, w: torch.Tensor | None, qp, *,
     x: [..., K]; w: [K, N], or a MoE bank [E, K, N] against x [E, C, K]
     with one state shared by every expert (``models.moe``, which taps
     its experts itself).  Returns [..., N] in x.dtype.
+
+    A bank is JAX's ``jax.vmap`` of this function over the experts: each
+    quantizer's LSQ gradient scale ``g = 1/sqrt(numel * Qp)`` counts one
+    expert's tensor (``x [C, K]``, ``w [K, N]``, a PSUM tile ``[C, N]``),
+    and the shared scales' gradients sum over the experts.  One call
+    over the bank with ``g`` taken per expert gives exactly that.
     """
     if isinstance(qp, DeployedQuantState):
         return deployed_dense(x, qp, backend=backend)
     spec = qp.spec if isinstance(qp, QuantState) else None
     if spec is None or not spec.enabled:
         return x @ w.to(x.dtype)
-    k = w.shape[0]
+    k = w.shape[-2]
     if tap is not None:
         tap.append(TapRecord(qp.name, x.reshape(-1, k), w, qp))
-    xq = lsq_quantize(x.float(), qp.ax, bits=spec.a_bits)
-    wq = lsq_quantize(w.float(), qp.aw, bits=spec.w_bits)
+    gx = gw = None                            # 2-D: from each tensor
+    if w.dim() == 3:        # a bank: one expert's sizes (``apsq_matmul``
+        n_exp = w.shape[0]  # takes its PSUM tiles' so too)
+        gx = lsq_gradient_scale(x.numel() // n_exp, qrange(spec.a_bits)[1])
+        gw = lsq_gradient_scale(w.numel() // n_exp, qrange(spec.w_bits)[1])
+    xq = lsq_quantize(x.float(), qp.ax, bits=spec.a_bits, g=gx)
+    wq = lsq_quantize(w.float(), qp.aw, bits=spec.w_bits, g=gw)
     if spec.psum.mode == "none":
         y = xq @ wq
     else:

@@ -11,11 +11,24 @@ package computes it:
     ``cap`` comes from the call's token count, so a decode batch's idle
     slots (token 0) take capacity too, exactly as in the reference;
   * SwiGLU experts over the dispatch buffer [E, cap, d], each GEMM one
-    op over all experts (``exec.execute_expert_gemm`` once deployed);
+    op over all experts (``exec.execute_expert_gemm`` once deployed;
+    under fake quant ``quant_dense`` on the bank, with JAX's per-expert
+    LSQ gradient scales);
   * a combine that adds each token's contributions from zero in
     ascending expert order, one add at a time in the model dtype: the
     order XLA's scatter-add applies them on the CPU.  No atomics, so
     the result is the same on every run and on both devices.
+
+Training differentiates the same code: gradients reach ``x``, the
+float32 router (through ``topk`` and the renormalised weights), the
+expert banks and their shared quantizer states, as ``jax.grad`` of the
+JAX function gives them.  A dropped entry gets exactly zero (it is
+zeroed before the buffer and weighted by zero in the combine; the
+overflow row it lands in is discarded).  Every backward is a gather or
+a scatter to distinct rows but one: the gather of each token's
+``top_k`` copies, whose backward (``index_put_`` with accumulation)
+sums them; on the card that sum is sort-based, so a step repeats bit
+for bit there too (``tests/test_torch_cuda.py`` holds it).
 
 The serving path has static shapes and no host round trip (no boolean
 masks, ``nonzero`` or ``.item()``); only the calibration tap filters

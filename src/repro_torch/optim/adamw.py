@@ -9,7 +9,9 @@ norm params are kept out of weight decay by their path names, as in the
 JAX package.  Params are updated in float32 and cast back to their dtype.
 
 ``adafactor_like=True`` factors the second moment of each 2-D+ param
-into row and column statistics (O(m+n) memory in place of O(mn)).
+into row and column statistics over its last two dims (O(m+n) memory in
+place of O(mn)); a MoE bank ``[E, K, N]`` keeps ``[E, K]`` rows and
+``[E, N]`` columns, one factorisation per expert, as in the JAX package.
 """
 from __future__ import annotations
 

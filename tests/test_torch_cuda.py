@@ -17,8 +17,9 @@ machine without JAX:
   launch): bit-exact over E, M (rows past M masked, two row blocks at
   M=17), ragged K, gs (past 16 too) and both exponent layouts; banks
   with empty experts and experts with one live row, a routed OLMoE
-  bank, operands 4-byte but not 16-byte aligned; bit-identical on
-  repeat, one launch count per call.
+  bank, operands 4-byte but not 16-byte aligned, Qwen3-MoE's banks
+  (E=128 at K=4096 N=1536 and K=1536 N=4096); bit-identical on repeat,
+  one launch count per call.
 * INT8-KV attention, decode and chunk forms (hd 8, 16, 64 and 128; GQA
   groups of 12 and 16 at hd 128): rtol 2e-5 / atol 2e-6, with S split
   across blocks (S up to 4096),
@@ -31,8 +32,10 @@ machine without JAX:
 * Quantization-aware training (fake quant, plain PyTorch, TF32 off):
   ``apsq_matmul`` and ``quant_dense`` gradients on the card equal the
   CPU's on the PO2 grid (x and w bit-equal, scales within their sums'
-  order), and one 2-layer train step on the card agrees with the CPU's
-  within the bound its docstring states.
+  order), the MoE bank form of ``quant_dense`` too, and one 2-layer
+  train step on the card (``tinyllama-smoke`` and ``olmoe-smoke``)
+  agrees with the CPU's within the bound its docstring states; the MoE
+  FFN's backward at a full-width OLMoE microbatch repeats bit for bit.
 """
 import numpy as np
 import pytest
@@ -582,6 +585,24 @@ def test_scatter_pages_on_card_equals_sequential_cpu(cuda):
         assert torch.equal(got.cpu(), want)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 2, 16])
+@pytest.mark.parametrize("k,n", [(4096, 1536), (1536, 4096)])
+def test_expert_kernels_at_qwen3_moe_shapes(cuda, k, n, m):
+    """Qwen3-MoE's expert banks (E=128; wi/wg [4096, 1536], wo [1536,
+    4096]) under mix2_ffn4 (n_p=8, gs=4: PSUM tiles of 512 and 192 K
+    rows), both exponent layouts."""
+    e, n_p, gs = 128, 8, 4
+    g = torch.Generator(device=cuda).manual_seed(k + n + m)
+    x = torch.randint(-128, 128, (e, m, k), generator=g, device=cuda,
+                      dtype=torch.int8)
+    w = torch.randint(-128, 128, (e, k, n), generator=g, device=cuda,
+                      dtype=torch.int8)
+    for shape in ((e, n_p), (e, n_p, n)):
+        ex = torch.randint(0, 16, shape, generator=g, device=cuda,
+                           dtype=torch.int32)
+        _expert_bit_exact_once_and_again(x, w, ex, gs)
+
 # ---------------------------------------------------------------------------
 # Quantization-aware training on the card (fake quant: plain PyTorch)
 # ---------------------------------------------------------------------------
@@ -721,3 +742,121 @@ def test_two_layer_train_step_on_card_against_cpu(no_tf32):
                          for k, v in m_cpu.items()))
     norm = math.sqrt(sum(float((v ** 2).sum()) for v in m_cpu.values()))
     assert diff <= 1e-2 * norm, diff / norm
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["apsq", "psq", "none"])
+def test_quant_dense_bank_grads_on_card_equal_cpu_on_po2_grid(no_tf32, mode):
+    """The MoE bank form ``[E, C, K] @ [E, K, N]`` with one shared state
+    (per-expert LSQ gradient scales): on the PO2 grid x and w gradients
+    bit-equal, the scales' within their sums' order."""
+    from repro_torch.core import QuantConfig, QuantState, quant_dense
+    spec = {"apsq": QuantConfig.apsq(gs=3, n_p=8),
+            "psq": QuantConfig.psq(n_p=8),
+            "none": QuantConfig.w8a8()}[mode]
+    rng = np.random.default_rng(8)
+    x = (rng.standard_normal((4, 7, 64)) * 2).astype(np.float32)
+    w = (rng.standard_normal((4, 64, 24)) * 0.2).astype(np.float32)
+    aw = (2.0 ** rng.integers(-9, -6, 24)).astype(np.float32)
+    ax = np.float32(2.0 ** -5)
+    ap = rng.integers(-4, 0, 8).astype(np.float32)
+    ct = rng.integers(-3, 4, (4, 7, 24)).astype(np.float32)
+    args = (x, w, aw, ax) + ((ap,) if mode != "none" else ())
+
+    def fn(x, w, aw, ax, ap=None):
+        return quant_dense(x, w, QuantState(aw=aw, ax=ax, ap=ap, spec=spec,
+                                            name="e"))
+
+    y_cpu, g_cpu = _grads(fn, args, "cpu", ct)
+    y_gpu, g_gpu = _grads(fn, args, no_tf32, ct)
+    assert torch.equal(y_gpu, y_cpu)
+    assert torch.equal(g_gpu[0], g_cpu[0])
+    assert torch.equal(g_gpu[1], g_cpu[1])
+    for got, want in zip(g_gpu[2:], g_cpu[2:]):
+        _scale_close(got, want)
+
+
+@pytest.mark.cuda
+def test_two_layer_moe_train_step_on_card_against_cpu(no_tf32):
+    """``olmoe-smoke`` (2 layers, d_model 64, 8 experts top-2, float32)
+    under APSQ gs=2 n_p=8 on the PO2 grid, one train step with two
+    microbatches on the card and on the CPU, as the dense case above and
+    held to its bounds: loss within 1e-5 (relative), gradient norm
+    within 1e-4, the gradient tree (``m``) within 1% of its norm in L2.
+    The card's step twice gives the same params bit for bit."""
+    import dataclasses
+    import math
+    from repro_torch.checkpoint import to_device
+    from repro_torch.configs import get_smoke
+    from repro_torch.core import QuantConfig, QuantState
+    from repro_torch.data import DataConfig, SyntheticCorpus
+    from repro_torch.models import init_lm, tree_leaves
+    from repro_torch.optim import OptimConfig, init_opt_state
+    from repro_torch.quant import calibrate_model, snap_params_po2
+    from repro_torch.train import TrainConfig, make_train_step
+
+    def floor_ap(t):
+        if isinstance(t, QuantState):
+            return dataclasses.replace(t, ap=torch.floor(t.ap))
+        if isinstance(t, dict):
+            return {k: floor_ap(v) for k, v in t.items()}
+        return t
+
+    cfg = get_smoke("olmoe-1b-7b").with_quant(QuantConfig.apsq(gs=2, n_p=8))
+    batch = SyntheticCorpus(DataConfig(vocab=cfg.vocab, seq_len=32,
+                                       global_batch=4)).batch_at(0)
+    params = calibrate_model(init_lm(cfg, seed=0, device="cpu"), cfg,
+                             {"tokens": batch["tokens"]})
+    params = floor_ap(snap_params_po2(params))
+    ocfg = OptimConfig(lr=1e-3, warmup_steps=2, total_steps=10)
+    step = make_train_step(cfg, ocfg, TrainConfig(microbatches=2))
+    out = {}
+    for dev in ("cpu", no_tf32, no_tf32):
+        p = to_device(params, dev)
+        b = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+        new, st, stats = step(p, init_opt_state(p, ocfg), b)
+        out.setdefault(str(dev), []).append(
+            (stats, {k: t.cpu() for k, t in tree_leaves(st["m"])},
+             {k: t.cpu() for k, t in tree_leaves(new)}))
+    (s_cpu, m_cpu, _), = out["cpu"]
+    (s_gpu, m_gpu, p_gpu), (_, _, p_again) = out[str(no_tf32)]
+    loss, gn = float(s_gpu["loss"]), float(s_gpu["grad_norm"])
+    assert abs(loss - float(s_cpu["loss"])) <= 1e-5 * abs(loss), loss
+    assert abs(gn - float(s_cpu["grad_norm"])) <= 1e-4 * gn, gn
+    diff = math.sqrt(sum(float(((m_gpu[k] - v) ** 2).sum())
+                         for k, v in m_cpu.items()))
+    norm = math.sqrt(sum(float((v ** 2).sum()) for v in m_cpu.values()))
+    assert diff <= 1e-2 * norm, diff / norm
+    for k, v in p_gpu.items():
+        assert torch.equal(v, p_again[k]), k
+
+
+@pytest.mark.cuda
+def test_moe_ffn_backward_repeats_on_card_at_olmoe_width(no_tf32):
+    """``moe_ffn``'s backward at a ``moe_train`` microbatch (1024 tokens,
+    d_model 2048, 64 experts top-8, bf16; expert d_ff cut to 128): each
+    token's 8 gathered copies sum in the gather's backward, and two
+    backward passes give the same gradients bit for bit."""
+    from repro_torch.models import tree_leaves
+    from repro_torch.models.moe import init_moe, moe_ffn
+
+    def leaves(t):
+        if isinstance(t, dict):
+            return {k: leaves(v) for k, v in t.items()}
+        return t.detach().requires_grad_(True)
+
+    gen = torch.Generator(device=no_tf32).manual_seed(5)
+    p = init_moe(gen, 2048, 128, 64, 8, torch.bfloat16, device=no_tf32)
+    x = torch.randn((2, 512, 2048), generator=gen, device=no_tf32,
+                    dtype=torch.float32).to(torch.bfloat16)
+    ct = torch.randn_like(x)
+    grads = []
+    for _ in range(2):
+        xs = x.detach().requires_grad_(True)
+        ps = leaves(p)
+        y = moe_ffn(ps, xs, n_experts=64, top_k=8)
+        (y.float() * ct.float()).sum().backward()
+        grads.append([xs.grad] + [t.grad for _, t in tree_leaves(ps)])
+    assert len(grads[0]) == 5
+    for a, b in zip(*grads):
+        assert torch.equal(a, b)
