@@ -136,14 +136,35 @@ Phases (each exits non-zero on failure):
              deployed GEMM (the expert banks too) bit-exact against its
              plain version -> 4 requests on 4 slots -> the ``moe_serve``
              engine checks.
+  rwkv_serve full-width RWKV6-3B (32 layers, d=2560, 40 heads of 64,
+             channel mix d_ff 8960, LayerNorm, vocab 65536, bf16, random
+             weights from seed 0; no attention layer): init_lm ->
+             calibrate_model (4 x 64 tokens, the chunked WKV) ->
+             export_quantized (mix2_ffn4: the time mix's wr/wk/wv/wg/wo
+             and the channel mix's wk/wv on the APSQ kernels; the LoRAs
+             and the channel mix's gate stay float) -> del the float
+             params -> PagedServingEngine (8 slots, page 16, chunk 16,
+             horizon 8) -> 8 requests (prompts 5-60, 16-32 new tokens,
+             one with an EOS at a step >= 1).  Checks: a max_batch=1
+             engine gives the same tokens on two requests; the second of
+             them, served on the slot the first left, equals itself on a
+             fresh engine; ``cuda`` and ``oracle`` engines on the card
+             give identical tokens on 2 requests; logits finite; the
+             chunked WKV within 5e-6 (relative) of the scan at 40 x 64
+             heads over 64 tokens.  Then QAT at full width cut to 2 of
+             32 layers (APSQ gs=2 n_p=8, seq 256 x batch 4 in 2
+             microbatches, the chunked WKV's backward): 2 steps with
+             finite losses, the first repeated from the same state bit
+             for bit.  Records tokens/s, peak memory, calibrate_s,
+             export_s and the launch counts.
 
-The main path runs in eleven configurations, each its own path:
+The main path runs in twelve configurations, each its own path:
 ``serve`` (mix2_ffn4: every layer APSQ), ``w8a8`` (ffn_only: W8A8
 attention projections), ``moe_serve`` (OLMoE, mix2_ffn4), ``moe_w8a8``
 (OLMoE, W8A8), ``load`` (the restored JAX export), ``sc2_serve``,
 ``dense_2l``'s two models, ``train`` and ``moe_train`` (their export ->
 serve tails; the training step itself is plain PyTorch and reaches no
-kernel) and ``qwen3_2l``.  Launch
+kernel), ``qwen3_2l`` and ``rwkv_serve``.  Launch
 counts are zeroed just before each and read just after; every kernel of
 each path must have launched.  The line before the
 last holds the per-kernel record: ``launches`` is the count of the path
@@ -170,7 +191,7 @@ INT8_OPS_PER_S = 1979e12       # H100 SXM int8 tensor cores, dense
 F32_OPS_PER_S = 67e12          # H100 SXM float32 outside the tensor cores
 PHASES = ("build", "kernels", "reference", "serve", "w8a8", "moe_reference",
           "moe_serve", "moe_w8a8", "load", "sc2_serve", "dense_2l", "train",
-          "moe_train", "qwen3_2l")
+          "moe_train", "qwen3_2l", "rwkv_serve")
 FIXTURE = os.path.join(ROOT, "tests", "fixtures",
                        "jax_export_starcoder2_smoke")
 NO_BATCHED_INT8_MM = ("none: PyTorch has no single call for a batched "
@@ -220,6 +241,7 @@ PATH_KERNELS = {
     "train": ("apsq_matmul", "apsq_matmul_m1", "int8_kv_attention"),
     "moe_train": ("apsq_matmul", "apsq_expert_matmul", "int8_kv_attention"),
     "qwen3_2l": ("apsq_matmul", "apsq_expert_matmul", "int8_kv_attention"),
+    "rwkv_serve": ("apsq_matmul", "apsq_matmul_m1"),
 }
 
 
@@ -1298,9 +1320,10 @@ def release(torch) -> None:
 
 def deployed_gemm_checks(torch, tree, errors: list) -> int:
     """Every deployed GEMM of ``tree`` (on the card) on random activation
-    codes at M = 3 and 8 (an expert bank: M rows for each expert),
-    against its plain version on the same codes; returns how many layers
-    were held."""
+    codes at M = 1 (the ``__dp4a`` body of a dense APSQ GEMM), 3, 8 and 16
+    (an expert bank: M rows for each expert), at the layer's own K, N,
+    n_p and gs, against its plain version on the same codes, bit for bit;
+    returns how many layers were held."""
     from repro_torch.core import DeployedQuantState, psum_group_size
     from repro_torch.kernels.apsq_matmul import ops, ref
     gen = None
@@ -1319,7 +1342,7 @@ def deployed_gemm_checks(torch, tree, errors: list) -> int:
         bank = w.dim() == 3
         if gen is None:
             gen = torch.Generator(device=w.device).manual_seed(4)
-        for m in (3, 8):
+        for m in (1, 3, 8, 16):
             x = torch.randint(-128, 128, w.shape[:-2] + (m, w.shape[-2]),
                               generator=gen, device=w.device,
                               dtype=torch.int8)
@@ -1790,6 +1813,185 @@ def phase_train(torch, np, _build, cfg, dev, steps: int = 10,
     return info, problems
 
 
+RWKV_TRAIN_LAYERS = 2
+
+
+def wkv_check(torch, cfg, dev, info: dict) -> list:
+    """The chunked WKV against the per-token scan on the card at the
+    model's full head width (H x hd, 4 sequences of 64 tokens from a
+    random state, ``log_w`` over its clip range [-2, -1e-4], chunk
+    ``cfg.wkv_chunk``): relative error (max |diff| / max |scan|) of the
+    outputs and final states within 5e-6, the CPU tests' bound."""
+    from repro_torch.models.rwkv import _wkv_chunked, _wkv_scan
+    g = torch.Generator(device=dev).manual_seed(7)
+    shape = (4, 64, cfg.n_heads, cfg.hd)
+    r, k, v = (torch.randn(shape, generator=g, device=dev)
+               for _ in range(3))
+    log_w = torch.clamp(-torch.exp(torch.rand(shape, generator=g,
+                                              device=dev) * 10.5 - 9),
+                        -2.0, -1e-4)
+    u = torch.randn((cfg.n_heads, cfg.hd), generator=g, device=dev) * 0.5
+    s0 = torch.randn((4, cfg.n_heads, cfg.hd, cfg.hd), generator=g,
+                     device=dev)
+    with torch.no_grad():
+        yc, sc = _wkv_chunked(r, k, v, log_w, u, s0, chunk=cfg.wkv_chunk)
+        ys, ss = _wkv_scan(r, k, v, log_w, u, s0)
+    info["wkv_chunked_vs_scan_rel"] = [
+        float((a - b).abs().max() / b.abs().max())
+        for a, b in ((yc, ys), (sc, ss))]
+    if not max(info["wkv_chunked_vs_scan_rel"]) <= 5e-6:
+        return [f"chunked WKV vs scan: {info['wkv_chunked_vs_scan_rel']}"]
+    return []
+
+
+def engines_equal(torch, deploy, cfg, reqs, kw, dev, info) -> list:
+    """A ``cuda`` engine and an ``oracle`` engine on the card serve
+    ``reqs`` with the same params and settings: the tokens must be
+    identical (the path has no attention, and the integer GEMM kernels
+    are exact, so every float op is the same in both)."""
+    from repro_torch.serving import PagedServingEngine, Request
+    sub = {}
+    for backend in ("cuda", "oracle"):
+        t0 = time.perf_counter()
+        e = PagedServingEngine(deploy, cfg, backend=backend, **kw)
+        sub[backend] = {r.uid: r.out for r in e.run([
+            Request(uid=r.uid, tokens=r.tokens,
+                    max_new_tokens=r.max_new_tokens) for r in reqs])}
+        sync(torch, dev)
+        info[f"sub_{backend}_s"] = time.perf_counter() - t0
+    div = first_divergence(sub["cuda"], sub["oracle"])
+    info["cuda_vs_oracle"] = {"equal": div is None, "tokens": sum(
+        len(o) for o in sub["oracle"].values())}
+    if div is not None:
+        return [f"cuda engine != oracle engine at (request, step) {div}"]
+    return []
+
+
+def rwkv_train_tail(torch, cfg, dev, info: dict) -> list:
+    """QAT of the model at full width cut to ``RWKV_TRAIN_LAYERS``
+    layers (APSQ gs=2 n_p=8, seq 256 x batch 4 in 2 microbatches, the
+    chunked WKV and its backward): 2 steps with finite losses, and the
+    first step taken again from the same state gives the same loss and
+    params, bit for bit."""
+    from repro_torch.core import QuantConfig
+    from repro_torch.data import DataConfig, SyntheticCorpus, \
+        device_put_batch
+    from repro_torch.models import init_lm
+    from repro_torch.optim import OptimConfig, init_opt_state
+    from repro_torch.quant import calibrate_model
+    from repro_torch.train import TrainConfig, make_train_step
+    cfg = cfg.scaled(n_layers=RWKV_TRAIN_LAYERS).with_quant(
+        QuantConfig.apsq(gs=2, n_p=8))
+    corpus = SyntheticCorpus(DataConfig(vocab=cfg.vocab, seq_len=256,
+                                        global_batch=4))
+    # the launcher's schedule at --lr 3e-4 (warmup max(steps // 20, 5))
+    ocfg = OptimConfig(lr=3e-4, total_steps=2, warmup_steps=5)
+    release(torch)
+    params = init_lm(cfg, seed=0, device=dev)
+    params = calibrate_model(params, cfg,
+                             {"tokens": corpus.batch_at(10**6)["tokens"]})
+    opt = init_opt_state(params, ocfg)
+    step_fn = make_train_step(cfg, ocfg, TrainConfig(microbatches=2))
+    batches = [device_put_batch(corpus.batch_at(s), dev) for s in (0, 1)]
+    t0 = time.perf_counter()
+    p1, o1, m1 = step_fn(params, opt, batches[0])
+    p2, _, m2 = step_fn(p1, o1, batches[1])
+    sync(torch, dev)
+    info["train_2_steps_s"] = time.perf_counter() - t0
+    info["train_losses"] = [float(m1["loss"]), float(m2["loss"])]
+    info["train_peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    problems = []
+    if not all(math.isfinite(v) for v in info["train_losses"]):
+        problems.append(f"train losses {info['train_losses']}")
+    again, _, m1b = step_fn(params, opt, batches[0])
+    bad = tree_bits_equal(torch, again, p1)
+    info["train_step_repeats"] = not bad and float(m1b["loss"]) == float(
+        m1["loss"])
+    if not info["train_step_repeats"]:
+        problems.append(f"the train step from one state differs on repeat "
+                        f"at {bad[:4]}")
+    return problems
+
+
+def phase_rwkv_serve(torch, np, _build, cfg, dev, profile: bool = False):
+    """Full-width RWKV6-3B (32 layers, d=2560, 40 heads of 64, d_ff 8960,
+    vocab 65536, bf16, random weights from seed 0): init -> calibrate
+    (4 x 64 tokens: the chunked WKV) -> export (mix2_ffn4) -> del the
+    float params -> 8 requests on 8 slots (page 16, chunk 16, horizon 8;
+    the path's zeroed run).  Checks: every deployed GEMM (kernels 1 and 4
+    at K=N=2560 n_p=4 gs=2, 2560x8960 and 8960x2560 at n_p=8 gs=4) bit
+    for bit against its plain version, batched == single-stream for two
+    requests (one with an EOS at step >= 1), a request served on the slot
+    another left gives its tokens from a fresh engine, the ``cuda`` and
+    ``oracle`` engines give identical tokens on 2 requests, finite
+    logits, the chunked WKV within 5e-6 of the scan at full head width,
+    then the QAT tail (``rwkv_train_tail``)."""
+    from repro_torch.models import init_lm
+    from repro_torch.quant import calibrate_model, export_quantized, \
+        policy_presets
+    from repro_torch.serving import PagedServingEngine, Request
+    cfg = cfg.with_quant(policy_presets()["mix2_ffn4"])
+    rng = np.random.default_rng(41)
+    info, problems = {"config": cfg.name, "layers": cfg.n_layers}, []
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    params = init_lm(cfg, seed=0, device=dev)
+    sync(torch, dev)
+    info["init_s"] = time.perf_counter() - t0
+    info["params_gb"] = sum(t.numel() * t.element_size() for t in
+                            iter_tensors(params)) / 1e9
+    t0 = time.perf_counter()
+    params = calibrate_model(params, cfg, {
+        "tokens": rng.integers(0, cfg.vocab, size=(4, 64))})
+    sync(torch, dev)
+    info["calibrate_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    deploy, report = export_quantized(params)
+    sync(torch, dev)
+    info["export_s"] = time.perf_counter() - t0
+    info["peak_mem_export_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del params
+    release(torch)
+    info["int8_gb"] = sum(r["int8_bytes"] * r["count"]
+                          for r in report.values()) / 1e9
+    info["clamped_exps"] = sum(r["clamped_exps"] for r in report.values())
+    info["deployed_gemms_held"] = deployed_gemm_checks(torch, deploy,
+                                                       problems)
+    problems += wkv_check(torch, cfg, dev, info)
+    reqs = make_requests(np, rng, 8, cfg.vocab, 5, 60, 16, 32, Request)
+    pages = math.ceil((60 + 32) / 16)
+    kw = dict(page_size=16, prefill_chunk=16, decode_horizon=8,
+              max_pages_per_slot=pages)
+    t0 = time.perf_counter()
+    single, step = single_stream_check(torch, deploy, cfg, reqs[:2], kw,
+                                       dev, probe_eos=True)
+    # request 1 above ran on the slot request 0 left: again on a fresh one
+    fresh, _ = single_stream_check(torch, deploy, cfg, reqs[1:2], kw, dev,
+                                   probe_eos=False)
+    info["single_stream_s"] = time.perf_counter() - t0
+    info["reused_slot_equal"] = fresh[1] == single[1]
+    if not info["reused_slot_equal"]:
+        problems.append(f"request 1 on a reused slot {single[1]} != on a "
+                        f"fresh engine {fresh[1]}")
+    eng = PagedServingEngine(deploy, cfg, max_batch=8,
+                             n_pages=8 * pages + 1, **kw)
+    done = serve_all(torch, _build, dev, eng, reqs, profile, info)
+    info["peak_mem_gb"] = max(info["peak_mem_gb"] or 0.0,
+                              info["peak_mem_export_gb"])
+    if len(done) != 8:
+        problems.append(f"{len(done)} of 8 requests finished")
+    problems += batched_vs_single(torch, deploy, cfg, reqs,
+                                  {r.uid: r.out for r in done}, single, step,
+                                  dev)
+    problems += logits_check(torch, deploy, cfg, reqs[2].tokens, dev, info)
+    problems += missing_launches("rwkv_serve", info["launches"])
+    problems += engines_equal(torch, deploy, cfg, reqs[2:4], dict(
+        kw, max_batch=2, n_pages=2 * pages + 1), dev, info)
+    del deploy
+    problems += rwkv_train_tail(torch, cfg, dev, info)
+    return info, problems
+
+
 # ---------------------------------------------------------------------------
 
 def main() -> int:
@@ -1797,8 +1999,9 @@ def main() -> int:
     ap.add_argument("--phases", default=",".join(PHASES),
                     help="comma-separated subset of " + ",".join(PHASES))
     ap.add_argument("--profile", action="store_true",
-                    help="trace one heartbeat of the serve, moe_serve and "
-                         "sc2_serve phases' batched engines, and one train "
+                    help="trace one heartbeat of the serve, moe_serve, "
+                         "sc2_serve and rwkv_serve phases' batched engines, "
+                         "and one train "
                          "step of the train and moe_train phases, with "
                          "torch.profiler")
     args = ap.parse_args()
@@ -1818,8 +2021,8 @@ def main() -> int:
         fail(f"{src}/repro_torch not found: run from a checkout of the repo")
     sys.path.insert(0, src)
     from repro_torch.configs import (chatglm3_6b, deepseek_7b, olmoe_1b_7b,
-                                     qwen3_moe_235b_a22b, starcoder2_15b,
-                                     tinyllama_1_1b)
+                                     qwen3_moe_235b_a22b, rwkv6_3b,
+                                     starcoder2_15b, tinyllama_1_1b)
     from repro_torch.kernels import _build
     cuda = torch.device("cuda")
 
@@ -1895,6 +2098,10 @@ def main() -> int:
         elif phase == "qwen3_2l":
             info, problems = phase_qwen3_2l(torch, np, _build,
                                             qwen3_moe_235b_a22b.CONFIG, cuda)
+        elif phase == "rwkv_serve":
+            info, problems = phase_rwkv_serve(torch, np, _build,
+                                              rwkv6_3b.CONFIG, cuda,
+                                              profile=args.profile)
         if "launches" in info:
             launches[phase] = info["launches"]
         launches.update(info.pop("paths", {}))

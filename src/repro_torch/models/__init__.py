@@ -1,4 +1,5 @@
-"""Model assembly (port of ``repro.models``: dense and MoE decoders)."""
+"""Model assembly (port of ``repro.models``: dense, MoE, RWKV-6 and RG-LRU
+decoders)."""
 from .config import ModelConfig
 from .model import (apply_layer, apply_unit, decode_horizon_paged,
                     decode_step_paged, embed_inputs, forward,

@@ -7,6 +7,8 @@ through ``repro_torch.exec``, no state a plain float GEMM.
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import math
 
 import torch
@@ -34,6 +36,55 @@ def init_linear(gen: torch.Generator, shape, dtype, *, device, quant=None,
     return p
 
 
+ROW_BLOCK = 16
+_ROW_BLOCKS = contextvars.ContextVar("row_blocks", default=False)
+
+
+@contextlib.contextmanager
+def row_blocks(on: bool = True):
+    """Within it (when ``on``), every float GEMM of ``matmul``/``dense``
+    and every ``apply_norm`` runs through ``rows_apply``.  The paged
+    serving path of a model with recurrent layers turns it on
+    (``model.forward_paged_chunk``): float results there feed recurrent
+    states and the residual stream without an INT8 quantizer between, so
+    a prefill chunk equals per-token decode, and a batch one stream, only
+    if a row's result does not depend on the rows beside it."""
+    token = _ROW_BLOCKS.set(on)
+    try:
+        yield
+    finally:
+        _ROW_BLOCKS.reset(token)
+
+
+def rows_apply(fn, x: torch.Tensor) -> torch.Tensor:
+    """``fn`` over the rows of x[..., K] in blocks of ``ROW_BLOCK`` rows
+    (the last block padded with zero rows), for a row-wise ``fn``
+    [ROW_BLOCK, K] -> [ROW_BLOCK, ...].  Every row then goes through
+    kernels of one shape, so its result does not depend on how many rows
+    the call holds: a GEMM library picks its kernel (and its order of
+    summation) by M, and PyTorch's reductions on the card pick their
+    thread layout by the number of rows.  At RWKV6-3B's shapes on an
+    H100 only the norms need it, on the CPU the GEMMs too
+    (``scripts/rwkv_row_blocks.py``)."""
+    x2 = x.reshape(-1, x.shape[-1])
+    m = x2.shape[0]
+    pad = -m % ROW_BLOCK
+    if pad:
+        x2 = F.pad(x2, (0, 0, 0, pad))
+    ys = [fn(x2[i:i + ROW_BLOCK]) for i in range(0, m + pad, ROW_BLOCK)]
+    y = ys[0] if len(ys) == 1 else torch.cat(ys)
+    return y[:m].reshape(tuple(x.shape[:-1]) + tuple(y.shape[1:]))
+
+
+def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Float x[..., K] @ w[K, N] in x's dtype; in fixed row blocks
+    (``rows_apply``) within ``row_blocks``."""
+    w = w.to(x.dtype)
+    if _ROW_BLOCKS.get():
+        return rows_apply(lambda b: b @ w, x)
+    return x @ w
+
+
 def dense(p: Params, x: torch.Tensor, *, tap: list | None = None,
           backend=None) -> torch.Tensor:
     """x[..., K] @ w[K, *out] as the layer's state says."""
@@ -45,7 +96,7 @@ def dense(p: Params, x: torch.Tensor, *, tap: list | None = None,
     if isinstance(qp, QuantState):
         y = quant_dense(x, w2d, qp, tap=tap)
     else:
-        y = x @ w2d.to(x.dtype)
+        y = matmul(x, w2d)
     return y.reshape(tuple(x.shape[:-1]) + tuple(w.shape[1:]))
 
 
@@ -62,7 +113,13 @@ def apply_norm(p: Params, x: torch.Tensor, kind: str = "rmsnorm",
     """RMSNorm or LayerNorm in float32, result in x's dtype.  LayerNorm is
     the JAX package's ``(x - mean) * rsqrt(var + eps) * scale + bias``
     with the population variance and eps 1e-6 (not ``F.layer_norm``'s
-    1e-5)."""
+    1e-5).  In fixed row blocks within ``row_blocks``."""
+    if _ROW_BLOCKS.get():
+        return rows_apply(lambda b: _norm(p, b, kind, eps), x)
+    return _norm(p, x, kind, eps)
+
+
+def _norm(p: Params, x: torch.Tensor, kind: str, eps: float) -> torch.Tensor:
     xf = x.float()
     if kind == "rmsnorm":
         xf = xf * torch.rsqrt((xf * xf).mean(dim=-1, keepdim=True) + eps)

@@ -2,11 +2,14 @@
 reads).
 
 The JAX dataclass's field names and defaults, for the fields the served
-and trained decoders read (``block_pattern=("attn",)``, RMSNorm or
-LayerNorm, a SwiGLU, GELU or MoE channel mix, partial RoPE, a tied or
-untied head; ``remat``/``remat_policy`` and ``z_loss`` for training).
-The JAX package's ``scan_layers`` has no counterpart: the port always
-holds units as ``{"u0": ..., "u1": ...}`` and loops over them.
+and trained decoders read (a ``block_pattern`` of attention, RWKV-6 and
+RG-LRU layers, RMSNorm or LayerNorm, a SwiGLU, GELU, MoE or RWKV
+channel mix, partial RoPE, a tied or untied head; ``remat`` /
+``remat_policy`` and ``z_loss`` for training).  ``n_layers`` is
+``n_units`` repeats of the pattern plus ``n_rem`` remainder layers (the
+pattern's first ``n_rem`` kinds).  The JAX package's ``scan_layers`` has
+no counterpart: the port always holds units as ``{"u0": ..., "u1":
+...}`` and loops over them.
 """
 from __future__ import annotations
 
@@ -17,6 +20,7 @@ import torch
 from repro_torch.core import QuantConfig
 
 BLOCK_KINDS = ("attn", "local", "rwkv", "rglru")
+WKV_IMPLS = ("scan", "chunked")
 REMAT_POLICIES = ("none", "dots")
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -43,6 +47,11 @@ class ModelConfig:
     n_experts: int = 0
     top_k: int = 0
     capacity_factor: float = 1.25
+    # RWKV
+    wkv_impl: str = "scan"            # scan | chunked
+    wkv_chunk: int = 32               # chunk length for the chunked WKV
+    # RG-LRU
+    d_rnn: int | None = None
     tie_embeddings: bool = False
     dtype: str = "bfloat16"
     quant: QuantConfig = dataclasses.field(default_factory=QuantConfig)
@@ -63,6 +72,15 @@ class ModelConfig:
     @property
     def n_units(self) -> int:
         return self.n_layers // len(self.block_pattern)
+
+    @property
+    def n_rem(self) -> int:
+        return self.n_layers % len(self.block_pattern)
+
+    @property
+    def recurrent(self) -> bool:
+        """True when a layer carries a recurrent state (rwkv, rglru)."""
+        return any(k in ("rwkv", "rglru") for k in self.block_pattern)
 
     @property
     def policy(self):
@@ -90,6 +108,11 @@ class ModelConfig:
         if self.mlp == "moe":
             assert 1 <= self.top_k <= self.n_experts, (self.top_k,
                                                        self.n_experts)
+        if "rglru" in self.block_pattern and self.d_rnn is None:
+            raise ValueError(f"{self.name}: rglru layers need d_rnn")
+        if self.wkv_impl not in WKV_IMPLS:
+            raise ValueError(f"wkv_impl {self.wkv_impl!r} is not one of "
+                             f"{WKV_IMPLS}")
         if self.remat_policy not in REMAT_POLICIES:
             raise ValueError(f"remat_policy {self.remat_policy!r} is not "
                              f"one of {REMAT_POLICIES}")
@@ -97,12 +120,13 @@ class ModelConfig:
 
     def check_ported(self):
         """Raise for what this slice of the port does not serve yet."""
-        if (self.family not in ("dense", "moe")
-                or self.block_pattern != ("attn",)
-                or self.mlp not in ("swiglu", "gelu", "moe")
+        if (self.family not in ("dense", "moe", "ssm", "hybrid")
+                or not set(self.block_pattern) <= {"attn", "rwkv", "rglru"}
+                or self.mlp not in ("swiglu", "gelu", "moe", "rwkv_cm")
                 or self.norm not in ("rmsnorm", "layernorm")):
             raise NotImplementedError(
-                f"{self.name}: the port serves decoder-only attention "
-                "stacks (RMSNorm or LayerNorm; SwiGLU, GELU or MoE channel "
-                "mix) of the dense and moe families only so far")
+                f"{self.name}: the port serves decoder-only stacks of "
+                "attention, RWKV-6 and RG-LRU layers (RMSNorm or LayerNorm; "
+                "SwiGLU, GELU, MoE or RWKV channel mix) of the dense, moe, "
+                "ssm and hybrid families only so far")
         return self

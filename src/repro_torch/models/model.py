@@ -1,25 +1,29 @@
-"""Decoder-only LM assembly (port of ``repro/models/model.py``: attention
-layers with a SwiGLU, GELU or MoE channel mix).
+"""Decoder-only LM assembly (port of ``repro/models/model.py``: attention,
+RWKV-6 and RG-LRU layers with a SwiGLU, GELU, MoE or RWKV channel mix).
 
 Params are nested dicts: ``{"embed": {"table"}, "units": {"u0": {"0":
-layer}, ...}, "final_norm": {"scale"}, "head": {"w"}}``; LayerNorms add
-a ``bias``, and a tied head has no ``head`` entry: the logits GEMM runs
-over the embedding table, quantized through ``embed.qp_head`` once
-``calibrate_model`` has made one.  The JAX
-package stacks units along a leading axis for ``lax.scan`` when
-``cfg.scan_layers`` is set; the port always keeps one entry per unit and
-loops over them (``checkpoint.convert`` unstacks a JAX tree), which is
-the same computation.  Layer names follow the JAX package
-(``unit.<pattern position>.mix.wq`` ...), so policies resolve the same.
+layer}, ...}, "rem": {"0": layer, ...}, "final_norm": {"scale"}, "head":
+{"w"}}``; LayerNorms add a ``bias``, and a tied head has no ``head``
+entry: the logits GEMM runs over the embedding table, quantized through
+``embed.qp_head`` once ``calibrate_model`` has made one.  ``n_units``
+repeats of ``cfg.block_pattern`` are followed by ``n_rem`` remainder
+layers (the pattern's first kinds, applied after the units, named
+``rem.<i>``; only present when ``n_layers`` is not a multiple of the
+pattern).  The JAX package stacks units along a leading axis for
+``lax.scan`` when ``cfg.scan_layers`` is set; the port always keeps one
+entry per unit and loops over them (``checkpoint.convert`` unstacks a
+JAX tree), which is the same computation.  Layer names follow the JAX
+package (``unit.<pattern position>.mix.wq`` ...), so policies resolve
+the same.
 
 Entry points: ``init_lm``, ``forward`` (full sequence; calibration and
 training, each unit under activation checkpointing when ``cfg.remat``),
 ``lm_loss``, ``forward_paged_chunk`` / ``decode_step_paged`` (serving
-over the paged INT8 KV cache) and ``decode_horizon_paged`` (H greedy
-decode steps with per-slot EOS / budget masking, a Python loop in place
-of ``lax.scan``).  ``tree_map`` / ``tree_leaves`` walk a params tree
-(nested dicts and ``QuantState``s), in one order: the optimizer and the
-checkpoint writer share them.
+over the paged INT8 KV cache; recurrent layers carry per-slot states)
+and ``decode_horizon_paged`` (H greedy decode steps with per-slot EOS /
+budget masking, a Python loop in place of ``lax.scan``).  ``tree_map``
+/ ``tree_leaves`` walk a params tree (nested dicts and ``QuantState``s),
+in one order: the optimizer and the checkpoint writer share them.
 """
 from __future__ import annotations
 
@@ -33,32 +37,48 @@ from repro_torch.core import (DeployedQuantState, QuantState, deployed_dense,
 from repro_torch.device import resolve_device
 from .attention import attention_block, init_attention
 from .common import (Params, apply_mlp, apply_norm, dense, embed,
-                     init_embedding, init_linear, init_mlp, init_norm)
+                     init_embedding, init_linear, init_mlp, init_norm,
+                     matmul, row_blocks)
 from .config import ModelConfig
 from .moe import init_moe, moe_ffn
+from .rglru import init_rglru_block, init_rglru_state, rglru_block
+from .rwkv import (init_rwkv_channel_mix, init_rwkv_state,
+                   init_rwkv_time_mix, rwkv_channel_mix, rwkv_time_mix)
 
 
 # ---------------------------------------------------------------------------
 # Params
 # ---------------------------------------------------------------------------
 
+def _init_ffn(gen, cfg: ModelConfig, *, device, name: str) -> Params:
+    dt, quant = cfg.torch_dtype, cfg.policy
+    if cfg.mlp == "moe":
+        return init_moe(gen, cfg.d_model, cfg.d_ff, cfg.n_experts, cfg.top_k,
+                        dt, device=device, quant=quant, name=name)
+    if cfg.mlp == "rwkv_cm":
+        return init_rwkv_channel_mix(gen, cfg.d_model, cfg.d_ff, dt,
+                                     device=device, quant=quant, name=name)
+    return init_mlp(gen, cfg.d_model, cfg.d_ff, dt, cfg.mlp, device=device,
+                    quant=quant, name=name)
+
+
 def init_layer(gen, cfg: ModelConfig, kind: str, *, device,
                name: str = "unit.0") -> Params:
-    if kind != "attn":
-        raise NotImplementedError(f"layer kind {kind!r} is not ported yet")
     dt, quant = cfg.torch_dtype, cfg.policy
+    kw = dict(device=device, quant=quant, name=f"{name}.mix")
     p = {"ln1": init_norm(cfg.d_model, dt, cfg.norm, device=device),
-         "ln2": init_norm(cfg.d_model, dt, cfg.norm, device=device),
-         "mix": init_attention(gen, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
-                               cfg.hd, dt, device=device, quant=quant,
-                               name=f"{name}.mix")}
-    if cfg.mlp == "moe":
-        p["ffn"] = init_moe(gen, cfg.d_model, cfg.d_ff, cfg.n_experts,
-                            cfg.top_k, dt, device=device, quant=quant,
-                            name=f"{name}.ffn")
+         "ln2": init_norm(cfg.d_model, dt, cfg.norm, device=device)}
+    if kind == "attn":
+        p["mix"] = init_attention(gen, cfg.d_model, cfg.n_heads,
+                                  cfg.n_kv_heads, cfg.hd, dt, **kw)
+    elif kind == "rwkv":
+        p["mix"] = init_rwkv_time_mix(gen, cfg.d_model, cfg.n_heads, cfg.hd,
+                                      dt, **kw)
+    elif kind == "rglru":
+        p["mix"] = init_rglru_block(gen, cfg.d_model, cfg.d_rnn, dt, **kw)
     else:
-        p["ffn"] = init_mlp(gen, cfg.d_model, cfg.d_ff, dt, cfg.mlp,
-                            device=device, quant=quant, name=f"{name}.ffn")
+        raise NotImplementedError(f"layer kind {kind!r} is not ported yet")
+    p["ffn"] = _init_ffn(gen, cfg, device=device, name=f"{name}.ffn")
     return p
 
 
@@ -79,8 +99,12 @@ def init_lm(cfg: ModelConfig, *, seed: int = 0, device=None) -> Params:
                                                name=f"unit.{j}")
                             for j, kind in enumerate(cfg.block_pattern)}
                   for i in range(cfg.n_units)},
-        "final_norm": init_norm(cfg.d_model, dt, cfg.norm, device=device),
     }
+    if cfg.n_rem:
+        p["rem"] = {str(i): init_layer(gen, cfg, cfg.block_pattern[i],
+                                       device=device, name=f"rem.{i}")
+                    for i in range(cfg.n_rem)}
+    p["final_norm"] = init_norm(cfg.d_model, dt, cfg.norm, device=device)
     if not cfg.tie_embeddings:
         p["head"] = init_linear(gen, (cfg.d_model, cfg.vocab), dt,
                                 device=device)
@@ -92,35 +116,80 @@ def init_lm(cfg: ModelConfig, *, seed: int = 0, device=None) -> Params:
 # ---------------------------------------------------------------------------
 
 def apply_layer(p: Params, x: torch.Tensor, *, cfg: ModelConfig,
-                state: Params | None = None, pos=0,
+                kind: str, state: Params | None = None, pos=0,
                 tap: list | None = None, backend=None, page_table=None):
-    """One pre-norm attention + SwiGLU/MoE block; returns (x, new_state)."""
+    """One pre-norm block of ``kind`` (time mix, then channel mix);
+    returns (x, new_state).  ``state`` is None for a full sequence
+    (calibration, training: the new state is then the attention K/V or
+    the recurrent state), else the layer's paged serving state.  A
+    multi-token chunk against paged state (``page_table`` set, S > 1)
+    runs the recurrences one token at a time (rwkv ``impl="scan"``,
+    rglru ``exact_scan``), as the per-token decode does."""
+    exact = page_table is not None and x.shape[1] > 1
     h = apply_norm(p["ln1"], x, cfg.norm)
-    out, kv = attention_block(
-        p["mix"], h, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
-        head_dim=cfg.hd, rope_fraction=cfg.rope_fraction,
-        rope_theta=cfg.rope_theta, cache=state, pos=pos, tap=tap,
-        backend=backend, page_table=page_table)
+    if kind == "attn":
+        out, new_state = attention_block(
+            p["mix"], h, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+            head_dim=cfg.hd, rope_fraction=cfg.rope_fraction,
+            rope_theta=cfg.rope_theta, cache=state, pos=pos, tap=tap,
+            backend=backend, page_table=page_table)
+    elif kind == "rwkv":
+        out, tm = rwkv_time_mix(
+            p["mix"], h, n_heads=cfg.n_heads, head_dim=cfg.hd,
+            impl="scan" if exact else cfg.wkv_impl, wkv_chunk=cfg.wkv_chunk,
+            state=state["tm"] if state is not None else None, tap=tap,
+            backend=backend)
+        new_state = {"tm": tm}
+    elif kind == "rglru":
+        out, rec = rglru_block(
+            p["mix"], h, state=state["rec"] if state is not None else None,
+            tap=tap, backend=backend, exact_scan=exact)
+        new_state = {"rec": rec}
+    else:
+        raise NotImplementedError(f"layer kind {kind!r} is not ported yet")
     x = x + out
     h2 = apply_norm(p["ln2"], x, cfg.norm)
     if cfg.mlp == "moe":
         y = moe_ffn(p["ffn"], h2, n_experts=cfg.n_experts, top_k=cfg.top_k,
                     capacity_factor=cfg.capacity_factor, tap=tap,
                     backend=backend)
+    elif cfg.mlp == "rwkv_cm":
+        y, cm = rwkv_channel_mix(
+            p["ffn"], h2,
+            state=state.get("cm") if state is not None else None,
+            tap=tap, backend=backend)
+        if state is not None:
+            new_state["cm"] = cm
     else:
         y = apply_mlp(p["ffn"], h2, cfg.mlp, tap=tap, backend=backend)
-    return x + y, kv
+    # an RWKV layer always carries the channel mix's shift in decode
+    if kind == "rwkv" and state is not None and "cm" not in new_state:
+        new_state["cm"] = {"shift": h2[:, -1:]}
+    return x + y, new_state
 
 
 def apply_unit(p: Params, x, *, cfg: ModelConfig, state=None, pos=0,
                tap: list | None = None, backend=None, page_table=None):
     new_state = {}
-    for j in range(len(cfg.block_pattern)):
-        x, s = apply_layer(p[str(j)], x, cfg=cfg,
+    for j, kind in enumerate(cfg.block_pattern):
+        x, s = apply_layer(p[str(j)], x, cfg=cfg, kind=kind,
                            state=state[str(j)] if state is not None else None,
                            pos=pos, tap=tap, backend=backend,
                            page_table=page_table)
         new_state[str(j)] = s
+    return x, new_state
+
+
+def apply_rem(p: Params, x, *, cfg: ModelConfig, state=None, pos=0,
+              tap: list | None = None, backend=None, page_table=None):
+    """The ``n_rem`` remainder layers after the units; their states sit
+    at ``state["rem<i>"]``.  Returns (x, {"rem<i>": new state})."""
+    new_state = {}
+    for i in range(cfg.n_rem):
+        x, new_state[f"rem{i}"] = apply_layer(
+            p["rem"][str(i)], x, cfg=cfg, kind=cfg.block_pattern[i],
+            state=state[f"rem{i}"] if state is not None else None, pos=pos,
+            tap=tap, backend=backend, page_table=page_table)
     return x, new_state
 
 
@@ -146,7 +215,7 @@ def logits_from_hidden(p: Params, cfg: ModelConfig, x: torch.Tensor, *,
         return deployed_dense(x, qp_head, backend=backend)
     if isinstance(qp_head, QuantState):
         return quant_dense(x, tied_head_weight(table), qp_head)
-    return x @ table.T.to(x.dtype)
+    return matmul(x, table.T)
 
 
 def _remat(fn, cfg: ModelConfig):
@@ -186,6 +255,7 @@ def forward(p: Params, cfg: ModelConfig, tokens: torch.Tensor, *, pos=0,
             return apply_unit(_p, h, cfg=cfg, pos=pos, tap=tap,
                               backend=backend)[0]
         x = _remat(unit, cfg)(x) if remat else unit(x)
+    x, _ = apply_rem(p, x, cfg=cfg, pos=pos, tap=tap, backend=backend)
     return logits_from_hidden(p, cfg, x, backend=backend)
 
 
@@ -213,27 +283,46 @@ def lm_loss(logits: torch.Tensor, labels: torch.Tensor,
 
 def init_paged_layer_state(cfg: ModelConfig, kind: str, batch: int,
                            page_size: int, n_pages: int, *, device) -> Params:
-    """Shared INT8 page pools + per-(slot, kv-head) running exponents."""
+    """Fresh paged state of one layer: an attention layer's shared INT8
+    page pools + per-(slot, kv-head) running exponents, a recurrent
+    layer's per-slot states (zeros)."""
     from repro_torch.serving.paged_cache import EXP_FLOOR
-    if kind != "attn":
-        raise NotImplementedError(f"paged state for {kind!r} is not ported")
-    shape = (n_pages, page_size, cfg.n_kv_heads, cfg.hd)
-    return {"k_pages": torch.zeros(shape, dtype=torch.int8, device=device),
-            "v_pages": torch.zeros(shape, dtype=torch.int8, device=device),
-            "k_exp": torch.full((batch, cfg.n_kv_heads), EXP_FLOOR,
-                                dtype=torch.int32, device=device),
-            "v_exp": torch.full((batch, cfg.n_kv_heads), EXP_FLOOR,
-                                dtype=torch.int32, device=device)}
+    dt = cfg.torch_dtype
+    if kind == "attn":
+        shape = (n_pages, page_size, cfg.n_kv_heads, cfg.hd)
+        return {"k_pages": torch.zeros(shape, dtype=torch.int8,
+                                       device=device),
+                "v_pages": torch.zeros(shape, dtype=torch.int8,
+                                       device=device),
+                "k_exp": torch.full((batch, cfg.n_kv_heads), EXP_FLOOR,
+                                    dtype=torch.int32, device=device),
+                "v_exp": torch.full((batch, cfg.n_kv_heads), EXP_FLOOR,
+                                    dtype=torch.int32, device=device)}
+    if kind == "rwkv":
+        return init_rwkv_state(batch, cfg.d_model, cfg.n_heads, cfg.hd, dt,
+                               device=device)
+    if kind == "rglru":
+        return {"rec": init_rglru_state(batch, cfg.d_rnn, dt,
+                                        device=device)}
+    raise NotImplementedError(f"paged state for {kind!r} is not ported")
 
 
 def init_paged_decode_state(cfg: ModelConfig, batch: int, *, page_size: int,
                             n_pages: int, device=None) -> Params:
+    """``{"units": {"u<i>": {position: layer state}}, "rem<i>": layer
+    state}``."""
     device = resolve_device(device)
-    return {"units": {
-        f"u{i}": {str(j): init_paged_layer_state(cfg, kind, batch, page_size,
-                                                 n_pages, device=device)
-                  for j, kind in enumerate(cfg.block_pattern)}
-        for i in range(cfg.n_units)}}
+
+    def layer(kind):
+        return init_paged_layer_state(cfg, kind, batch, page_size, n_pages,
+                                      device=device)
+
+    state = {"units": {f"u{i}": {str(j): layer(kind)
+                                 for j, kind in enumerate(cfg.block_pattern)}
+                       for i in range(cfg.n_units)}}
+    for i in range(cfg.n_rem):
+        state[f"rem{i}"] = layer(cfg.block_pattern[i])
+    return state
 
 
 def forward_paged_chunk(p: Params, cfg: ModelConfig, state: Params,
@@ -243,16 +332,21 @@ def forward_paged_chunk(p: Params, cfg: ModelConfig, state: Params,
 
     tokens [B, C] whose first token sits at per-slot position ``pos``
     [B]; page_table [B, n_max].  Returns (logits [B, 1, V] of the LAST
-    chunk row, new_state)."""
-    x = embed_inputs(p, cfg, tokens)
-    new_units = {}
-    for i in range(len(p["units"])):
-        key = f"u{i}"
-        x, new_units[key] = apply_unit(
-            p["units"][key], x, cfg=cfg, state=state["units"][key], pos=pos,
-            backend=backend, page_table=page_table)
-    logits = logits_from_hidden(p, cfg, x[:, -1:], backend=backend)
-    return logits, {**state, "units": new_units}
+    chunk row, new_state).  A model with recurrent layers runs its float
+    GEMMs and norms in fixed row blocks here (``common.row_blocks``), so a
+    token's values do not depend on the chunk or the batch it rides in."""
+    with row_blocks(cfg.recurrent):
+        x = embed_inputs(p, cfg, tokens)
+        new_units = {}
+        for i in range(len(p["units"])):
+            key = f"u{i}"
+            x, new_units[key] = apply_unit(
+                p["units"][key], x, cfg=cfg, state=state["units"][key],
+                pos=pos, backend=backend, page_table=page_table)
+        x, new_rem = apply_rem(p, x, cfg=cfg, state=state, pos=pos,
+                               backend=backend, page_table=page_table)
+        logits = logits_from_hidden(p, cfg, x[:, -1:], backend=backend)
+    return logits, {**state, "units": new_units, **new_rem}
 
 
 def decode_step_paged(p: Params, cfg: ModelConfig, state: Params,

@@ -15,7 +15,8 @@ capture list; each captured ``QuantState`` is refined by
 scales).  Two passes per unit: the second re-captures with the first
 pass's scales, so a linear downstream of another quantized linear in the
 same unit (the MLP's ``wo``) sees calibrated inputs.  Each unit is then
-re-applied with its calibrated scales before the next unit is captured.
+re-applied with its calibrated scales before the next unit is captured,
+and the remainder layers (``rem.<i>``) follow the units one at a time.
 A tied head gets its ``embed.qp_head`` last (policy name ``"head"``),
 calibrated on the final-norm hidden states over
 ``tied_head_weight(table)``.
@@ -72,7 +73,8 @@ def calibrate_model(params, cfg, batch: dict,
     """
     # lazy: models import quant.policy
     from repro_torch.models.common import apply_norm
-    from repro_torch.models.model import apply_unit, embed_inputs
+    from repro_torch.models.model import (apply_layer, apply_unit,
+                                          embed_inputs)
     device = params["embed"]["table"].device
     tokens = torch.as_tensor(batch["tokens"], device=device).long()
     new_params = dict(params)
@@ -87,6 +89,16 @@ def calibrate_model(params, cfg, batch: dict,
         x, _ = apply_unit(new_unit, x, cfg=cfg, pos=0)
         new_units[key] = new_unit
     new_params["units"] = new_units
+    if cfg.n_rem:
+        new_rem = {}
+        for i in range(cfg.n_rem):
+            kind = cfg.block_pattern[i]
+            new_rem[str(i)] = _calibrate_block(
+                lambda pp, tap, _x=x, _k=kind: apply_layer(
+                    pp, _x, cfg=cfg, kind=_k, pos=0, tap=tap),
+                params["rem"][str(i)], sample_tokens)
+            x, _ = apply_layer(new_rem[str(i)], x, cfg=cfg, kind=kind, pos=0)
+        new_params["rem"] = new_rem
     resolved = (resolve_quant(cfg.policy, "head") if cfg.tie_embeddings
                 else None)
     if resolved is not None:

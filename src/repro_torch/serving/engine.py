@@ -32,7 +32,7 @@ from repro_torch.models.model import (decode_horizon_paged,
                                       forward_paged_chunk,
                                       init_paged_decode_state,
                                       paged_state_axes, tree_map)
-from .paged_cache import EXP_FLOOR, NULL_PAGE, page_span
+from .paged_cache import NULL_PAGE, page_span
 
 
 def _check_horizon(h) -> int:
@@ -96,6 +96,13 @@ class PagedServingEngine:
                                              page_size=page_size,
                                              n_pages=n_pages,
                                              device=self.device)
+        self._axes = paged_state_axes(self.state)
+        # a newly admitted slot's per-slot leaves (running exponents at
+        # EXP_FLOOR, recurrent states at zeros); None where shared
+        self._fresh = tree_map(
+            lambda _, fr, ax: None if ax == -1 else fr,
+            init_paged_decode_state(cfg, 1, page_size=page_size, n_pages=1,
+                                    device=self.device), self._axes)
         self.sched = Scheduler(max_slots=max_batch, n_pages=n_pages,
                                page_size=page_size,
                                max_pages_per_slot=max_pages_per_slot,
@@ -126,20 +133,18 @@ class PagedServingEngine:
 
     def _run_prefill_chunk(self, tokens, slot: int, start: int, table_row):
         """Prefill one chunk of one slot against the shared pools; the
-        first chunk (start 0) resets the slot's per-slot leaves."""
-        cfg = self.cfg
-        axes = paged_state_axes(self.state)
-
-        def take(path, full, ax):
-            if ax == -1:
-                return full
-            if start == 0:
-                return torch.full_like(full[slot:slot + 1], EXP_FLOOR)
-            return full[slot:slot + 1]
-
-        sub = tree_map(take, self.state, axes)
+        first chunk (start 0) resets the slot's per-slot leaves to a fresh
+        state's (running exponents to ``EXP_FLOOR``, recurrent states to
+        zeros), whatever a prior occupant left there."""
+        axes = self._axes
+        if start == 0:
+            sub = tree_map(lambda _, full, fr, ax: full if ax == -1 else fr,
+                           self.state, self._fresh, axes)
+        else:
+            sub = tree_map(lambda _, full, ax: full if ax == -1
+                           else full[slot:slot + 1], self.state, axes)
         lg, st = forward_paged_chunk(
-            self.params, cfg, sub, tokens, self._t([start]), table_row,
+            self.params, self.cfg, sub, tokens, self._t([start]), table_row,
             backend=self.backend)
 
         def put(path, full, s, ax):

@@ -36,6 +36,10 @@ machine without JAX:
   train step on the card (``tinyllama-smoke`` and ``olmoe-smoke``)
   agrees with the CPU's within the bound its docstring states; the MoE
   FFN's backward at a full-width OLMoE microbatch repeats bit for bit.
+* Recurrent blocks: the hybrid attn / rwkv / rglru stack (one remainder
+  layer) served on the card, the ``cuda`` engine giving the ``oracle``
+  engine's tokens, a prefill chunk bit-equal to per-token decode; the
+  chunked WKV on the card within the CPU's bound of the CPU's.
 """
 import numpy as np
 import pytest
@@ -860,3 +864,119 @@ def test_moe_ffn_backward_repeats_on_card_at_olmoe_width(no_tf32):
     assert len(grads[0]) == 5
     for a, b in zip(*grads):
         assert torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# Recurrent blocks (RWKV-6, RG-LRU) on the paged serving path
+# ---------------------------------------------------------------------------
+
+HYBRID = dict(name="m", family="dense", n_layers=4, d_model=32, n_heads=4,
+              n_kv_heads=2, d_ff=64, vocab=128, dtype="float32",
+              block_pattern=("attn", "rwkv", "rglru"), d_rnn=32,
+              wkv_impl="chunked", wkv_chunk=4)
+
+
+def _hybrid_export(dev):
+    """The hybrid attn / rwkv / rglru stack with one remainder layer,
+    calibrated and exported (mix2_ffn4) on the CPU, moved to ``dev``."""
+    from repro_torch.checkpoint import to_device
+    from repro_torch.models import init_lm
+    from repro_torch.models.config import ModelConfig
+    from repro_torch.quant import (calibrate_model, export_quantized,
+                                   policy_presets)
+    cfg = ModelConfig(**HYBRID).with_quant(policy_presets()["mix2_ffn4"])
+    params = init_lm(cfg, seed=1, device="cpu")
+    tok = np.random.default_rng(2).integers(0, cfg.vocab, (2, 16))
+    deploy, _ = export_quantized(calibrate_model(params, cfg,
+                                                 {"tokens": tok}))
+    return to_device(deploy, dev), cfg
+
+
+@pytest.mark.cuda
+def test_hybrid_stack_cuda_engine_equals_oracle_engine(no_tf32):
+    """The hybrid stack on the card: the ``cuda`` engine (APSQ GEMMs,
+    their m=1 form and the attention kernel) gives the ``oracle``
+    engine's greedy tokens, and launches each of those kernels."""
+    from repro_torch.serving import PagedServingEngine, Request
+    deploy, cfg = _hybrid_export(no_tf32)
+    rng = np.random.default_rng(3)
+    spec = [(i, rng.integers(0, cfg.vocab, size=n).astype(np.int32), m)
+            for i, (n, m) in enumerate([(5, 6), (9, 7), (1, 5), (13, 6)])]
+    outs = {}
+    for backend in ("cuda", "oracle"):
+        _build.reset_launch_counts()
+        eng = PagedServingEngine(deploy, cfg, backend=backend, max_batch=3,
+                                 page_size=4, n_pages=40, prefill_chunk=8,
+                                 decode_horizon=4)
+        done = eng.run([Request(uid=u, tokens=t, max_new_tokens=m)
+                        for u, t, m in spec])
+        outs[backend] = {r.uid: r.out for r in done}
+        if backend == "cuda":
+            counts = dict(_build.launch_counts)
+    assert outs["cuda"] == outs["oracle"]
+    for k in ("apsq_matmul", "apsq_matmul_m1", "int8_kv_attention"):
+        assert counts.get(k, 0) > 0, (k, counts)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunks", [(8, 4, 1), (13,)])
+def test_hybrid_stack_chunked_prefill_equals_per_token_on_card(no_tf32,
+                                                               chunks):
+    """13 prompt tokens in chunks against one per call, on the card with
+    the CUDA kernels: the recurrent states and the RG-LRU conv window
+    bit-equal, the K/V pages and exponents too."""
+    from repro_torch.models import (forward_paged_chunk,
+                                    init_paged_decode_state, tree_leaves)
+    deploy, cfg = _hybrid_export(no_tf32)
+    tokens = torch.from_numpy(np.random.default_rng(5).integers(
+        0, cfg.vocab, (1, 13))).to(no_tf32)
+
+    def run(chs):
+        st = init_paged_decode_state(cfg, 1, page_size=4, n_pages=8,
+                                     device=no_tf32)
+        table = torch.arange(1, 5, dtype=torch.int32, device=no_tf32)[None]
+        s0 = 0
+        for c in chs:
+            lg, st = forward_paged_chunk(
+                deploy, cfg, st, tokens[:, s0:s0 + c],
+                torch.tensor([s0], dtype=torch.int32, device=no_tf32), table)
+            s0 += c
+        return lg, st
+
+    lg1, st1 = run([1] * 13)
+    lg2, st2 = run(chunks)
+    want = dict(tree_leaves(st1))
+    for path, leaf in tree_leaves(st2):
+        assert torch.equal(leaf, want[path]), path
+    assert torch.equal(lg1, lg2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunk", [32, 8])
+def test_chunked_wkv_on_card_equals_cpu_within_bound(no_tf32, chunk):
+    """The chunk-parallel WKV on the card against the CPU's on the same
+    inputs (45 tokens from a random state, ``log_w`` over its clip range
+    [-2, -1e-4], TF32 off), and against the card's scan: relative error
+    (max |diff| / max |CPU|) within 5e-6, the CPU bound against JAX
+    (``tests/test_torch_rwkv.py``)."""
+    from repro_torch.models.rwkv import _wkv_chunked, _wkv_scan
+    rng = np.random.default_rng(9)
+    B, S, H, hd = 2, 45, 3, 64
+    r, k, v = (rng.standard_normal((B, S, H, hd)).astype(np.float32)
+               for _ in range(3))
+    log_w = np.clip(-np.exp(rng.uniform(-9, 1.5, (B, S, H, hd))), -2.0,
+                    -1e-4).astype(np.float32)
+    u = (rng.standard_normal((H, hd)) * 0.5).astype(np.float32)
+    s0 = rng.standard_normal((B, H, hd, hd)).astype(np.float32)
+    cpu = [torch.from_numpy(a) for a in (r, k, v, log_w, u, s0)]
+    gpu = [a.to(no_tf32) for a in cpu]
+    with torch.no_grad():
+        y_c, s_c = _wkv_chunked(*cpu, chunk=chunk)
+        y_g, s_g = _wkv_chunked(*gpu, chunk=chunk)
+        y_s, s_s = _wkv_scan(*gpu)
+
+    def rel(a, b):
+        return float((a.cpu() - b).abs().max() / b.abs().max())
+
+    assert rel(y_g, y_c) <= 5e-6 and rel(s_g, s_c) <= 5e-6
+    assert rel(y_g, y_s.cpu()) <= 5e-6 and rel(s_g, s_s.cpu()) <= 5e-6

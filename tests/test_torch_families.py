@@ -21,8 +21,8 @@ on the CPU at smoke size: ``starcoder2-smoke`` (LayerNorm, GELU MLP),
   that first appears at step >= 1, decode horizon 4.
 * The port's invariants per family: batched == single-stream, fused
   horizon == stepwise.
-* ``check_ported`` still refuses the blocks and the families
-  (encoder-decoder, vision-language) the port does not serve.
+* ``check_ported`` still refuses the block (local attention) and the
+  families (encoder-decoder, vision-language) the port does not serve.
 """
 import dataclasses
 import functools
@@ -321,10 +321,8 @@ def test_batched_equals_single_stream_and_horizon_equals_stepwise(family):
 
 
 @pytest.mark.parametrize("change", [
-    dict(block_pattern=("rwkv",)), dict(block_pattern=("rglru",)),
     dict(block_pattern=("attn", "local")), dict(family="encdec"),
-    dict(family="vlm")], ids=["rwkv", "rglru", "local", "encdec",
-                                 "frontend"])
+    dict(family="vlm")], ids=["local", "encdec", "frontend"])
 def test_check_ported_still_refuses(change):
     cfg = get_smoke("starcoder2-15b").scaled(**change)
     with pytest.raises(NotImplementedError):
