@@ -157,14 +157,36 @@ Phases (each exits non-zero on failure):
              finite losses, the first repeated from the same state bit
              for bit.  Records tokens/s, peak memory, calibrate_s,
              export_s and the launch counts.
+  rg_serve   full-width RecurrentGemma-2B (26 layers: 8 units of
+             rglru, rglru, local and 2 remainder rglru; d=2560, 10 query
+             heads and 1 KV head at hd 256, GELU d_ff 7680, d_rnn 2560,
+             vocab 256000, window 2048, bf16, random weights from seed
+             0) on the dense ServingEngine (float KV rings; the paged
+             engine refuses local attention): init_lm -> calibrate_model
+             -> export_quantized (mix2_ffn4) -> del the float params ->
+             8 slots, cache_len 256, horizon 8 -> 8 requests (prompts
+             16-64, 16-32 new tokens; per-token prefill, as the
+             reference's).  Checks: every deployed GEMM bit for bit
+             against its plain version; finite logits; 3 requests served
+             alone give the batched tokens; ``cuda`` and ``oracle``
+             engines give identical tokens on 3 requests, and sampled at
+             T = 0.8 one seed repeats and horizon 8 equals horizon 1 on
+             2 (prompts cut to 8 tokens, 8 new ones); no
+             ``int8_kv_attention`` launch.  Then the same
+             widths cut to one unit (3 layers): a 2064-token prompt and
+             16 new tokens at cache_len 2112 (the 2048-slot ring wraps),
+             horizon 8 == horizon 1, and the agreement with ``forward``'s
+             greedy tokens reported with top-2 margins.  Records tokens/s
+             with prefill and decode seconds apart, peak memory,
+             calibrate_s, export_s and the launch counts.
 
-The main path runs in twelve configurations, each its own path:
+The main path runs in thirteen configurations, each its own path:
 ``serve`` (mix2_ffn4: every layer APSQ), ``w8a8`` (ffn_only: W8A8
 attention projections), ``moe_serve`` (OLMoE, mix2_ffn4), ``moe_w8a8``
 (OLMoE, W8A8), ``load`` (the restored JAX export), ``sc2_serve``,
 ``dense_2l``'s two models, ``train`` and ``moe_train`` (their export ->
 serve tails; the training step itself is plain PyTorch and reaches no
-kernel), ``qwen3_2l`` and ``rwkv_serve``.  Launch
+kernel), ``qwen3_2l``, ``rwkv_serve`` and ``rg_serve``.  Launch
 counts are zeroed just before each and read just after; every kernel of
 each path must have launched.  The line before the
 last holds the per-kernel record: ``launches`` is the count of the path
@@ -191,7 +213,7 @@ INT8_OPS_PER_S = 1979e12       # H100 SXM int8 tensor cores, dense
 F32_OPS_PER_S = 67e12          # H100 SXM float32 outside the tensor cores
 PHASES = ("build", "kernels", "reference", "serve", "w8a8", "moe_reference",
           "moe_serve", "moe_w8a8", "load", "sc2_serve", "dense_2l", "train",
-          "moe_train", "qwen3_2l", "rwkv_serve")
+          "moe_train", "qwen3_2l", "rwkv_serve", "rg_serve")
 FIXTURE = os.path.join(ROOT, "tests", "fixtures",
                        "jax_export_starcoder2_smoke")
 NO_BATCHED_INT8_MM = ("none: PyTorch has no single call for a batched "
@@ -242,6 +264,7 @@ PATH_KERNELS = {
     "moe_train": ("apsq_matmul", "apsq_expert_matmul", "int8_kv_attention"),
     "qwen3_2l": ("apsq_matmul", "apsq_expert_matmul", "int8_kv_attention"),
     "rwkv_serve": ("apsq_matmul", "apsq_matmul_m1"),
+    "rg_serve": ("apsq_matmul", "apsq_matmul_m1"),
 }
 
 
@@ -1992,6 +2015,243 @@ def phase_rwkv_serve(torch, np, _build, cfg, dev, profile: bool = False):
     return info, problems
 
 
+RG_WINDOW_LAYERS = 3      # one (rglru, rglru, local) unit
+
+
+def dense_engine_run(torch, eng, reqs, dev, profile: bool = False,
+                     info: dict | None = None) -> dict:
+    """Run fresh copies of ``reqs`` to the end on a dense ``ServingEngine``;
+    returns {uid: tokens}.  With ``profile``, trace its third heartbeat
+    (admission + one decode macro-step) into ``info["profile"]``."""
+    from repro_torch.serving import Request
+    pending = [Request(uid=r.uid, tokens=r.tokens,
+                       max_new_tokens=r.max_new_tokens,
+                       eos_token=r.eos_token) for r in reqs]
+    done, beat = [], 0
+    while pending or any(s is not None for s in eng.slots):
+        if profile and beat == 2:
+            from torch.profiler import ProfilerActivity
+            sync(torch, dev)
+            prof = torch.profiler.profile(activities=[ProfilerActivity.CUDA])
+            prof.__enter__()
+            tw = time.perf_counter()
+        while pending and eng.add_request(pending[0]):
+            pending.pop(0)
+        done.extend(eng.step())
+        if profile and beat == 2:
+            sync(torch, dev)
+            window = time.perf_counter() - tw
+            prof.__exit__(None, None, None)
+            info["profile"] = profile_summary(prof, window)
+            info["profile"].update(window_s=window,
+                                   window="engine heartbeat 2")
+        beat += 1
+    sync(torch, dev)
+    return {r.uid: r.out for r in done}
+
+
+def dense_logits_check(torch, deploy, cfg, tokens, dev, info: dict) -> list:
+    """``decode_step`` over 16 tokens of ``tokens`` from a fresh dense
+    state: the logits of every step finite, of shape [1, 1, vocab]."""
+    from repro_torch.models import decode_step, init_decode_state
+    st = init_decode_state(cfg, 1, 64, device=dev)
+    finite, shape = True, None
+    for t in range(16):
+        lg, st = decode_step(deploy, cfg, st,
+                             torch.tensor([[int(tokens[t])]], device=dev),
+                             torch.tensor([t], dtype=torch.int32,
+                                          device=dev))
+        finite = finite and bool(torch.isfinite(lg).all())
+        shape = list(lg.shape)
+    info["logits_finite"] = finite
+    if not finite or shape != [1, 1, cfg.vocab]:
+        return [f"logits {shape} finite={finite}"]
+    return []
+
+
+def rg_window_check(torch, np, cfg, dev, info: dict) -> list:
+    """RecurrentGemma's widths cut to one unit (rglru, rglru, local): one
+    request of 2064 prompt tokens and 16 new ones at cache_len 2112, so
+    the 2048-slot ring wraps and the window masks.  The prompt prefills
+    once; a second engine at horizon 1 takes a copy of the prefilled
+    slot.  Gate: horizon 8 gives horizon 1's tokens.  Reported: agreement
+    of those tokens with ``forward``'s greedy tokens over the same
+    sequence (teacher-forced), with the top-2 logit margin where they
+    differ (bf16), and the times."""
+    from repro_torch.models import forward, init_lm, tree_map
+    from repro_torch.quant import calibrate_model, export_quantized
+    from repro_torch.serving import Request, ServingEngine
+    t_all = time.perf_counter()
+    cfg = cfg.scaled(n_layers=RG_WINDOW_LAYERS)
+    rng = np.random.default_rng(53)
+    params = calibrate_model(init_lm(cfg, seed=1, device=dev), cfg, {
+        "tokens": rng.integers(0, cfg.vocab, size=(2, 64))})
+    deploy, _ = export_quantized(params)
+    del params
+    prompt = rng.integers(0, cfg.vocab, size=2064).astype(np.int32)
+    engines = {h: ServingEngine(deploy, cfg, max_batch=1, cache_len=2112,
+                                decode_horizon=h) for h in (8, 1)}
+    t0 = time.perf_counter()
+    engines[8].add_request(Request(uid=0, tokens=prompt, max_new_tokens=16))
+    sync(torch, dev)
+    info["window_prefill_s"] = time.perf_counter() - t0
+    twin = engines[1]
+    twin.state = tree_map(lambda _, t: t.clone(), engines[8].state)
+    twin.pos = engines[8].pos.copy()
+    twin.slots = [Request(uid=0, tokens=prompt, max_new_tokens=16,
+                          out=list(engines[8].slots[0].out))]
+    outs = {}
+    for h in (8, 1):
+        t0 = time.perf_counter()
+        outs[h] = dense_engine_run(torch, engines[h], [], dev)[0]
+        info[f"window_h{h}_s"] = time.perf_counter() - t0
+    seq = torch.tensor([[int(t) for t in prompt] + outs[8][:-1]],
+                       device=dev)
+    with torch.no_grad():
+        lg = forward(deploy, cfg, seq)[0, len(prompt) - 1:].float()
+    ref = [int(t) for t in lg.argmax(-1)]
+    top = torch.topk(lg, 2, dim=-1).values
+    margins = (top[:, 0] - top[:, 1]).tolist()
+    info["window"] = {
+        "layers": cfg.n_layers, "prompt": len(prompt), "new": 16,
+        "cache_len": 2112, "ring": cfg.local_window,
+        "h8_equals_h1": outs[8] == outs[1],
+        "forward_agrees": sum(a == b for a, b in zip(outs[8], ref)),
+        "forward_differs_at": [
+            {"step": i, "engine": a, "forward": b, "margin": margins[i]}
+            for i, (a, b) in enumerate(zip(outs[8], ref)) if a != b],
+        "seconds": time.perf_counter() - t_all}
+    if outs[8] != outs[1]:
+        return [f"window: horizon 8 {outs[8]} != horizon 1 {outs[1]}"]
+    return []
+
+
+def phase_rg_serve(torch, np, _build, cfg, dev, profile: bool = False):
+    """Full-width RecurrentGemma-2B (26 layers: 8 units of rglru, rglru,
+    local and 2 remainder rglru; d=2560, 10 query heads and 1 KV head at
+    hd 256, GELU d_ff 7680, d_rnn 2560, vocab 256000, window 2048, bf16,
+    random weights from seed 0): init -> calibrate (4 x 64 tokens) ->
+    export (mix2_ffn4: RG-LRU wx/wy/wo and attention on APSQ gs=2 n_p=4,
+    the MLP on gs=4 n_p=8; the gates and the head stay float) -> del the
+    float params -> the dense ``ServingEngine`` (8 slots, cache_len 256,
+    horizon 8) -> 8 requests (prompts 16-64, 16-32 new tokens; the
+    path's zeroed run).  Checks: every deployed GEMM bit for bit against
+    its plain version; finite logits; the 3 requests with the shortest
+    prompts served alone give the batched tokens; with their prompts cut
+    to 8 tokens and 8 new ones, the ``cuda`` engine gives the ``oracle``
+    engine's tokens, and sampled at T = 0.8 (the next 2 shortest, cut
+    alike) one seed gives the same tokens twice and at horizons 8 and 1,
+    and other tokens than greedy decoding of those requests; the path
+    launches
+    ``apsq_matmul`` and ``apsq_matmul_m1`` and no ``int8_kv_attention``;
+    then the window check at one unit (``rg_window_check``)."""
+    from repro_torch.models import init_lm
+    from repro_torch.quant import calibrate_model, export_quantized, \
+        policy_presets
+    from repro_torch.serving import Request, ServingEngine
+    cfg = cfg.with_quant(policy_presets()["mix2_ffn4"])
+    rng = np.random.default_rng(51)
+    info, problems = {"config": cfg.name, "layers": cfg.n_layers}, []
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    params = init_lm(cfg, seed=0, device=dev)
+    sync(torch, dev)
+    info["init_s"] = time.perf_counter() - t0
+    info["params_gb"] = sum(t.numel() * t.element_size() for t in
+                            iter_tensors(params)) / 1e9
+    t0 = time.perf_counter()
+    params = calibrate_model(params, cfg, {
+        "tokens": rng.integers(0, cfg.vocab, size=(4, 64))})
+    sync(torch, dev)
+    info["calibrate_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    deploy, report = export_quantized(params)
+    sync(torch, dev)
+    info["export_s"] = time.perf_counter() - t0
+    info["peak_mem_export_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del params
+    release(torch)
+    info["int8_gb"] = sum(r["int8_bytes"] * r["count"]
+                          for r in report.values()) / 1e9
+    info["deployed_gemms_held"] = deployed_gemm_checks(torch, deploy,
+                                                       problems)
+    reqs = make_requests(np, rng, 8, cfg.vocab, 16, 64, 16, 32, Request)
+    problems += dense_logits_check(torch, deploy, cfg, reqs[0].tokens, dev,
+                                   info)
+    kw = dict(cache_len=256, decode_horizon=8)
+    eng = ServingEngine(deploy, cfg, max_batch=8, **kw)
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    batched = dense_engine_run(torch, eng, reqs, dev, profile, info)
+    info["serve_s"] = time.perf_counter() - t0
+    info["launches"] = dict(_build.launch_counts)
+    n_tok = sum(len(o) for o in batched.values())
+    info.update(
+        requests=len(batched), generated_tokens=n_tok,
+        tokens_per_s=n_tok / info["serve_s"], profiled=profile,
+        tokens_sha256=hashlib.sha256(json.dumps(
+            sorted(batched.items())).encode()).hexdigest(),
+        prefill_tokens=eng.prefill_tokens, prefill_s=eng.prefill_seconds,
+        decode_s=eng.decode_seconds,
+        decode_dispatches=eng.decode_dispatches,
+        decode_device_steps=eng.decode_device_steps,
+        horizon_hist=eng.horizon_hist,
+        peak_mem_gb=max(torch.cuda.max_memory_allocated() / 1e9,
+                        info["peak_mem_export_gb"]))
+    if len(batched) != 8:
+        problems.append(f"{len(batched)} of 8 requests finished")
+    problems += missing_launches("rg_serve", info["launches"])
+    if info["launches"].get("int8_kv_attention", 0):
+        problems.append("int8_kv_attention launched on the dense engine's "
+                        "path")
+    # the checks take the requests with the shortest prompts: every step
+    # of the per-token prefill runs the whole model
+    short = sorted(reqs, key=lambda r: len(r.tokens))
+    t0 = time.perf_counter()
+    single = {r.uid: dense_engine_run(torch, ServingEngine(
+        deploy, cfg, max_batch=1, **kw), [r], dev)[r.uid]
+        for r in short[:3]}
+    info["single_stream_s"] = time.perf_counter() - t0
+    div = first_divergence(single, {u: batched[u] for u in single})
+    info["batched_equals_single"] = div is None
+    if div is not None:
+        problems.append(f"batched != single-stream at (request, step) {div}")
+    # the engine and sampling checks cut those prompts to 8 tokens and
+    # the outputs to 8: the oracle engine takes ~0.9 s a step
+    cut = [Request(uid=r.uid, tokens=r.tokens[:8], max_new_tokens=8)
+           for r in short[:5]]
+    sub = {}
+    for backend in ("cuda", "oracle"):
+        t0 = time.perf_counter()
+        sub[backend] = dense_engine_run(torch, ServingEngine(
+            deploy, cfg, max_batch=3, backend=backend, **kw), cut[:3], dev)
+        info[f"sub_{backend}_s"] = time.perf_counter() - t0
+    div = first_divergence(sub["cuda"], sub["oracle"])
+    info["cuda_vs_oracle"] = {"equal": div is None, "tokens": sum(
+        len(o) for o in sub["oracle"].values())}
+    if div is not None:
+        problems.append(f"cuda engine != oracle engine at (request, step) "
+                        f"{div}")
+    sampled, t0 = {}, time.perf_counter()
+    for run, h, greedy in (("a", 8, False), ("b", 8, False),
+                           ("h1", 1, False), ("greedy", 8, True)):
+        sampled[run] = dense_engine_run(torch, ServingEngine(
+            deploy, cfg, max_batch=2, cache_len=256, decode_horizon=h,
+            greedy=greedy, temperature=0.8, seed=5), cut[3:5], dev)
+    info["sampled"] = {
+        "repeats": sampled["a"] == sampled["b"],
+        "h8_equals_h1": sampled["a"] == sampled["h1"],
+        "differs_from_greedy": sampled["a"] != sampled["greedy"],
+        "seconds": time.perf_counter() - t0}
+    if not (info["sampled"]["repeats"] and info["sampled"]["h8_equals_h1"]
+            and info["sampled"]["differs_from_greedy"]):
+        problems.append(f"sampling: {info['sampled']}")
+    del deploy, eng
+    release(torch)
+    problems += rg_window_check(torch, np, cfg, dev, info)
+    return info, problems
+
+
 # ---------------------------------------------------------------------------
 
 def main() -> int:
@@ -2000,7 +2260,8 @@ def main() -> int:
                     help="comma-separated subset of " + ",".join(PHASES))
     ap.add_argument("--profile", action="store_true",
                     help="trace one heartbeat of the serve, moe_serve, "
-                         "sc2_serve and rwkv_serve phases' batched engines, "
+                         "sc2_serve, rwkv_serve and rg_serve phases' "
+                         "batched engines, "
                          "and one train "
                          "step of the train and moe_train phases, with "
                          "torch.profiler")
@@ -2021,8 +2282,9 @@ def main() -> int:
         fail(f"{src}/repro_torch not found: run from a checkout of the repo")
     sys.path.insert(0, src)
     from repro_torch.configs import (chatglm3_6b, deepseek_7b, olmoe_1b_7b,
-                                     qwen3_moe_235b_a22b, rwkv6_3b,
-                                     starcoder2_15b, tinyllama_1_1b)
+                                     qwen3_moe_235b_a22b, recurrentgemma_2b,
+                                     rwkv6_3b, starcoder2_15b,
+                                     tinyllama_1_1b)
     from repro_torch.kernels import _build
     cuda = torch.device("cuda")
 
@@ -2102,6 +2364,10 @@ def main() -> int:
             info, problems = phase_rwkv_serve(torch, np, _build,
                                               rwkv6_3b.CONFIG, cuda,
                                               profile=args.profile)
+        elif phase == "rg_serve":
+            info, problems = phase_rg_serve(torch, np, _build,
+                                            recurrentgemma_2b.CONFIG, cuda,
+                                            profile=args.profile)
         if "launches" in info:
             launches[phase] = info["launches"]
         launches.update(info.pop("paths", {}))

@@ -9,7 +9,8 @@ _MODULES = {"tinyllama-1.1b": "tinyllama_1_1b",
             "chatglm3-6b": "chatglm3_6b",
             "deepseek-7b": "deepseek_7b",
             "qwen3-moe-235b-a22b": "qwen3_moe_235b_a22b",
-            "rwkv6-3b": "rwkv6_3b"}
+            "rwkv6-3b": "rwkv6_3b",
+            "recurrentgemma-2b": "recurrentgemma_2b"}
 
 ARCH_NAMES = tuple(_MODULES)
 

@@ -1,17 +1,19 @@
-"""Model assembly (port of ``repro.models``: dense, MoE, RWKV-6 and RG-LRU
-decoders)."""
+"""Model assembly (port of ``repro.models``: dense, MoE, RWKV-6, RG-LRU and
+sliding-window attention decoders)."""
 from .config import ModelConfig
-from .model import (apply_layer, apply_unit, decode_horizon_paged,
+from .model import (apply_layer, apply_unit, batch_state_axes,
+                    decode_horizon, decode_horizon_paged, decode_step,
                     decode_step_paged, embed_inputs, forward,
-                    forward_paged_chunk, init_lm, init_paged_decode_state,
-                    lm_loss, logits_from_hidden, paged_state_axes,
-                    tree_leaves, tree_map)
+                    forward_paged_chunk, init_decode_state, init_lm,
+                    init_paged_decode_state, lm_loss, logits_from_hidden,
+                    paged_state_axes, sample_tokens, tree_leaves, tree_map)
 from .moe import init_moe, moe_ffn
 
 __all__ = [
-    "ModelConfig", "apply_layer", "apply_unit", "decode_horizon_paged",
+    "ModelConfig", "apply_layer", "apply_unit", "batch_state_axes",
+    "decode_horizon", "decode_horizon_paged", "decode_step",
     "decode_step_paged", "embed_inputs", "forward", "forward_paged_chunk",
-    "init_lm", "init_moe", "init_paged_decode_state", "lm_loss",
-    "logits_from_hidden", "moe_ffn", "paged_state_axes", "tree_leaves",
-    "tree_map",
+    "init_decode_state", "init_lm", "init_moe", "init_paged_decode_state",
+    "lm_loss", "logits_from_hidden", "moe_ffn", "paged_state_axes",
+    "sample_tokens", "tree_leaves", "tree_map",
 ]

@@ -43,12 +43,13 @@ _ROW_BLOCKS = contextvars.ContextVar("row_blocks", default=False)
 @contextlib.contextmanager
 def row_blocks(on: bool = True):
     """Within it (when ``on``), every float GEMM of ``matmul``/``dense``
-    and every ``apply_norm`` runs through ``rows_apply``.  The paged
-    serving path of a model with recurrent layers turns it on
-    (``model.forward_paged_chunk``): float results there feed recurrent
-    states and the residual stream without an INT8 quantizer between, so
-    a prefill chunk equals per-token decode, and a batch one stream, only
-    if a row's result does not depend on the rows beside it."""
+    and every ``apply_norm`` runs through ``rows_apply``.  The serving paths
+    of a model with recurrent layers turn it on
+    (``model.forward_paged_chunk``, ``model.decode_step``): float results
+    there feed recurrent states and the residual stream without an INT8
+    quantizer between, so a prefill chunk equals per-token decode, and a
+    batch one stream, only if a row's result does not depend on the rows
+    beside it."""
     token = _ROW_BLOCKS.set(on)
     try:
         yield

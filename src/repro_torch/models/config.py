@@ -2,8 +2,9 @@
 reads).
 
 The JAX dataclass's field names and defaults, for the fields the served
-and trained decoders read (a ``block_pattern`` of attention, RWKV-6 and
-RG-LRU layers, RMSNorm or LayerNorm, a SwiGLU, GELU, MoE or RWKV
+and trained decoders read (a ``block_pattern`` of attention, sliding-window
+``local`` attention, RWKV-6 and RG-LRU layers, a score ``softcap``,
+RMSNorm or LayerNorm, a SwiGLU, GELU, MoE or RWKV
 channel mix, partial RoPE, a tied or untied head; ``remat`` /
 ``remat_policy`` and ``z_loss`` for training).  ``n_layers`` is
 ``n_units`` repeats of the pattern plus ``n_rem`` remainder layers (the
@@ -43,6 +44,8 @@ class ModelConfig:
     block_pattern: tuple = ("attn",)
     rope_fraction: float = 1.0
     rope_theta: float = 10000.0
+    local_window: int = 2048
+    softcap: float | None = None
     # MoE
     n_experts: int = 0
     top_k: int = 0
@@ -121,12 +124,13 @@ class ModelConfig:
     def check_ported(self):
         """Raise for what this slice of the port does not serve yet."""
         if (self.family not in ("dense", "moe", "ssm", "hybrid")
-                or not set(self.block_pattern) <= {"attn", "rwkv", "rglru"}
+                or not set(self.block_pattern) <= set(BLOCK_KINDS)
                 or self.mlp not in ("swiglu", "gelu", "moe", "rwkv_cm")
                 or self.norm not in ("rmsnorm", "layernorm")):
             raise NotImplementedError(
                 f"{self.name}: the port serves decoder-only stacks of "
-                "attention, RWKV-6 and RG-LRU layers (RMSNorm or LayerNorm; "
+                "attention, local attention, RWKV-6 and RG-LRU layers "
+                "(RMSNorm or LayerNorm; "
                 "SwiGLU, GELU, MoE or RWKV channel mix) of the dense, moe, "
                 "ssm and hybrid families only so far")
         return self

@@ -1,5 +1,6 @@
 """Decoder-only LM assembly (port of ``repro/models/model.py``: attention,
-RWKV-6 and RG-LRU layers with a SwiGLU, GELU, MoE or RWKV channel mix).
+sliding-window ``local`` attention, RWKV-6 and RG-LRU layers with a
+SwiGLU, GELU, MoE or RWKV channel mix).
 
 Params are nested dicts: ``{"embed": {"table"}, "units": {"u0": {"0":
 layer}, ...}, "rem": {"0": layer, ...}, "final_norm": {"scale"}, "head":
@@ -18,10 +19,13 @@ the same.
 
 Entry points: ``init_lm``, ``forward`` (full sequence; calibration and
 training, each unit under activation checkpointing when ``cfg.remat``),
-``lm_loss``, ``forward_paged_chunk`` / ``decode_step_paged`` (serving
-over the paged INT8 KV cache; recurrent layers carry per-slot states)
-and ``decode_horizon_paged`` (H greedy decode steps with per-slot EOS /
-budget masking, a Python loop in place of ``lax.scan``).  ``tree_map``
+``lm_loss``, ``init_decode_state`` / ``decode_step`` (the dense
+``ServingEngine``'s float KV caches, a ring buffer for ``local``
+layers), ``forward_paged_chunk`` / ``decode_step_paged`` (serving over
+the paged INT8 KV cache; recurrent layers carry per-slot states) and
+``decode_horizon`` / ``decode_horizon_paged`` (H decode steps, greedy or
+sampled by ``sample_tokens``, with per-slot EOS / budget masking, a
+Python loop in place of ``lax.scan``).  ``tree_map``
 / ``tree_leaves`` walk a params tree (nested dicts and ``QuantState``s),
 in one order: the optimizer and the checkpoint writer share them.
 """
@@ -68,7 +72,7 @@ def init_layer(gen, cfg: ModelConfig, kind: str, *, device,
     kw = dict(device=device, quant=quant, name=f"{name}.mix")
     p = {"ln1": init_norm(cfg.d_model, dt, cfg.norm, device=device),
          "ln2": init_norm(cfg.d_model, dt, cfg.norm, device=device)}
-    if kind == "attn":
+    if kind in ("attn", "local"):
         p["mix"] = init_attention(gen, cfg.d_model, cfg.n_heads,
                                   cfg.n_kv_heads, cfg.hd, dt, **kw)
     elif kind == "rwkv":
@@ -121,17 +125,22 @@ def apply_layer(p: Params, x: torch.Tensor, *, cfg: ModelConfig,
     """One pre-norm block of ``kind`` (time mix, then channel mix);
     returns (x, new_state).  ``state`` is None for a full sequence
     (calibration, training: the new state is then the attention K/V or
-    the recurrent state), else the layer's paged serving state.  A
+    the recurrent state), else the layer's serving state: paged with
+    ``page_table``, else the dense engine's (one token per slot).  A
     multi-token chunk against paged state (``page_table`` set, S > 1)
     runs the recurrences one token at a time (rwkv ``impl="scan"``,
-    rglru ``exact_scan``), as the per-token decode does."""
+    rglru ``exact_scan``), as the per-token decode does.  Against the
+    dense state an MoE channel mix routes each slot alone (capacity from
+    its one token), as the reference's per-slot ``vmap`` does."""
     exact = page_table is not None and x.shape[1] > 1
     h = apply_norm(p["ln1"], x, cfg.norm)
-    if kind == "attn":
+    if kind in ("attn", "local"):
         out, new_state = attention_block(
             p["mix"], h, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
             head_dim=cfg.hd, rope_fraction=cfg.rope_fraction,
-            rope_theta=cfg.rope_theta, cache=state, pos=pos, tap=tap,
+            rope_theta=cfg.rope_theta,
+            window=cfg.local_window if kind == "local" else None,
+            softcap=cfg.softcap, cache=state, pos=pos, tap=tap,
             backend=backend, page_table=page_table)
     elif kind == "rwkv":
         out, tm = rwkv_time_mix(
@@ -150,9 +159,10 @@ def apply_layer(p: Params, x: torch.Tensor, *, cfg: ModelConfig,
     x = x + out
     h2 = apply_norm(p["ln2"], x, cfg.norm)
     if cfg.mlp == "moe":
+        per_slot = state is not None and page_table is None
         y = moe_ffn(p["ffn"], h2, n_experts=cfg.n_experts, top_k=cfg.top_k,
                     capacity_factor=cfg.capacity_factor, tap=tap,
-                    backend=backend)
+                    backend=backend, groups=x.shape[0] if per_slot else 1)
     elif cfg.mlp == "rwkv_cm":
         y, cm = rwkv_channel_mix(
             p["ffn"], h2,
@@ -278,45 +288,31 @@ def lm_loss(logits: torch.Tensor, labels: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# Paged decode
+# Dense decode (the ``ServingEngine``'s float KV caches)
 # ---------------------------------------------------------------------------
 
-def init_paged_layer_state(cfg: ModelConfig, kind: str, batch: int,
-                           page_size: int, n_pages: int, *, device) -> Params:
-    """Fresh paged state of one layer: an attention layer's shared INT8
-    page pools + per-(slot, kv-head) running exponents, a recurrent
-    layer's per-slot states (zeros)."""
-    from repro_torch.serving.paged_cache import EXP_FLOOR
+def init_layer_state(cfg: ModelConfig, kind: str, batch: int,
+                     cache_len: int, *, device) -> Params:
+    """Fresh dense decode state of one layer: float K/V caches [batch,
+    cache_len, Hkv, hd] (a ``local`` layer: a ring of ``min(local_window,
+    cache_len)`` slots), a recurrent layer's zero states."""
     dt = cfg.torch_dtype
-    if kind == "attn":
-        shape = (n_pages, page_size, cfg.n_kv_heads, cfg.hd)
-        return {"k_pages": torch.zeros(shape, dtype=torch.int8,
-                                       device=device),
-                "v_pages": torch.zeros(shape, dtype=torch.int8,
-                                       device=device),
-                "k_exp": torch.full((batch, cfg.n_kv_heads), EXP_FLOOR,
-                                    dtype=torch.int32, device=device),
-                "v_exp": torch.full((batch, cfg.n_kv_heads), EXP_FLOOR,
-                                    dtype=torch.int32, device=device)}
+    if kind in ("attn", "local"):
+        n = min(cfg.local_window, cache_len) if kind == "local" else cache_len
+        shape = (batch, n, cfg.n_kv_heads, cfg.hd)
+        return {"k": torch.zeros(shape, dtype=dt, device=device),
+                "v": torch.zeros(shape, dtype=dt, device=device)}
     if kind == "rwkv":
         return init_rwkv_state(batch, cfg.d_model, cfg.n_heads, cfg.hd, dt,
                                device=device)
     if kind == "rglru":
         return {"rec": init_rglru_state(batch, cfg.d_rnn, dt,
                                         device=device)}
-    raise NotImplementedError(f"paged state for {kind!r} is not ported")
+    raise ValueError(kind)
 
 
-def init_paged_decode_state(cfg: ModelConfig, batch: int, *, page_size: int,
-                            n_pages: int, device=None) -> Params:
-    """``{"units": {"u<i>": {position: layer state}}, "rem<i>": layer
-    state}``."""
-    device = resolve_device(device)
-
-    def layer(kind):
-        return init_paged_layer_state(cfg, kind, batch, page_size, n_pages,
-                                      device=device)
-
+def _init_state(cfg: ModelConfig, layer) -> Params:
+    """``{"units": {"u<i>": {position: layer(kind)}}, "rem<i>": ...}``."""
     state = {"units": {f"u{i}": {str(j): layer(kind)
                                  for j, kind in enumerate(cfg.block_pattern)}
                        for i in range(cfg.n_units)}}
@@ -325,16 +321,23 @@ def init_paged_decode_state(cfg: ModelConfig, batch: int, *, page_size: int,
     return state
 
 
-def forward_paged_chunk(p: Params, cfg: ModelConfig, state: Params,
-                        tokens: torch.Tensor, pos: torch.Tensor,
-                        page_table: torch.Tensor, *, backend=None):
-    """One prefill chunk (or decode step, C=1) over the paged INT8 cache.
+def init_decode_state(cfg: ModelConfig, batch: int, cache_len: int, *,
+                      device=None) -> Params:
+    """The whole model's dense decode state (``init_layer_state`` per
+    layer, units unstacked)."""
+    device = resolve_device(device)
+    return _init_state(cfg, lambda kind: init_layer_state(
+        cfg, kind, batch, cache_len, device=device))
 
-    tokens [B, C] whose first token sits at per-slot position ``pos``
-    [B]; page_table [B, n_max].  Returns (logits [B, 1, V] of the LAST
-    chunk row, new_state).  A model with recurrent layers runs its float
-    GEMMs and norms in fixed row blocks here (``common.row_blocks``), so a
-    token's values do not depend on the chunk or the batch it rides in."""
+
+def _serve_step(p: Params, cfg: ModelConfig, state: Params,
+                tokens: torch.Tensor, pos, page_table, backend):
+    """tokens [B, S] against a serving state (dense, or paged with
+    ``page_table``); returns (logits [B, 1, V] of the last row,
+    new_state).  A model with recurrent layers runs its float GEMMs,
+    norms and dense decode attention in fixed blocks
+    (``common.row_blocks``), so a token's values do not depend on the
+    chunk or the batch it rides in."""
     with row_blocks(cfg.recurrent):
         x = embed_inputs(p, cfg, tokens)
         new_units = {}
@@ -347,6 +350,64 @@ def forward_paged_chunk(p: Params, cfg: ModelConfig, state: Params,
                                backend=backend, page_table=page_table)
         logits = logits_from_hidden(p, cfg, x[:, -1:], backend=backend)
     return logits, {**state, "units": new_units, **new_rem}
+
+
+def decode_step(p: Params, cfg: ModelConfig, state: Params,
+                token: torch.Tensor, pos, *, backend=None):
+    """One decode step against the dense state: token [B, 1] at ``pos``
+    (a scalar, or a per-slot [B] vector: the reference ``vmap``s a
+    batch-1 step over the slots, the port batches them; the fixed blocks
+    make the per-token prefill at B = 1 and the decode at B = slots
+    round alike).  Returns (logits [B, 1, V], new_state)."""
+    return _serve_step(p, cfg, state, token, pos, None, backend)
+
+
+# ---------------------------------------------------------------------------
+# Paged decode
+# ---------------------------------------------------------------------------
+
+def init_paged_layer_state(cfg: ModelConfig, kind: str, batch: int,
+                           page_size: int, n_pages: int, *, device) -> Params:
+    """Fresh paged state of one layer: an attention layer's shared INT8
+    page pools + per-(slot, kv-head) running exponents, a recurrent
+    layer's per-slot states (zeros).  A ``local`` layer is refused, as
+    in the reference."""
+    from repro_torch.serving.paged_cache import EXP_FLOOR
+    if kind == "local":
+        raise NotImplementedError(
+            "paged serving does not cover local-attention layers yet")
+    if kind == "attn":
+        shape = (n_pages, page_size, cfg.n_kv_heads, cfg.hd)
+        return {"k_pages": torch.zeros(shape, dtype=torch.int8,
+                                       device=device),
+                "v_pages": torch.zeros(shape, dtype=torch.int8,
+                                       device=device),
+                "k_exp": torch.full((batch, cfg.n_kv_heads), EXP_FLOOR,
+                                    dtype=torch.int32, device=device),
+                "v_exp": torch.full((batch, cfg.n_kv_heads), EXP_FLOOR,
+                                    dtype=torch.int32, device=device)}
+    return init_layer_state(cfg, kind, batch, cache_len=1, device=device)
+
+
+def init_paged_decode_state(cfg: ModelConfig, batch: int, *, page_size: int,
+                            n_pages: int, device=None) -> Params:
+    """``{"units": {"u<i>": {position: layer state}}, "rem<i>": layer
+    state}``."""
+    device = resolve_device(device)
+    return _init_state(cfg, lambda kind: init_paged_layer_state(
+        cfg, kind, batch, page_size, n_pages, device=device))
+
+
+def forward_paged_chunk(p: Params, cfg: ModelConfig, state: Params,
+                        tokens: torch.Tensor, pos: torch.Tensor,
+                        page_table: torch.Tensor, *, backend=None):
+    """One prefill chunk (or decode step, C=1) over the paged INT8 cache.
+
+    tokens [B, C] whose first token sits at per-slot position ``pos``
+    [B]; page_table [B, n_max].  Returns (logits [B, 1, V] of the LAST
+    chunk row, new_state); a recurrent model's float ops run in fixed
+    row blocks (``_serve_step``)."""
+    return _serve_step(p, cfg, state, tokens, pos, page_table, backend)
 
 
 def decode_step_paged(p: Params, cfg: ModelConfig, state: Params,
@@ -405,6 +466,12 @@ def tree_leaves(tree, path=(), nodes: dict | None = None) -> list:
     return [(path, tree)]
 
 
+def batch_state_axes(state: Params) -> Params:
+    """Per-leaf slot axis of a dense decode state: 0 everywhere (the
+    port never stacks units)."""
+    return tree_map(lambda path, a: 0, state)
+
+
 def paged_state_axes(state: Params) -> Params:
     """Per-leaf slot axis of a paged state: -1 for the shared page pools,
     0 for per-slot leaves (the port never stacks units)."""
@@ -421,40 +488,49 @@ def _keep_slots(old, new, ax: int, on: torch.Tensor):
     return torch.where(m, new, old)
 
 
-def decode_horizon_paged(p: Params, cfg: ModelConfig, state: Params,
-                         tokens: torch.Tensor, pos: torch.Tensor,
-                         page_table: torch.Tensor, *, horizon: int,
-                         active: torch.Tensor, budget: torch.Tensor,
-                         remaining: torch.Tensor, eos: torch.Tensor,
-                         backend=None):
-    """``horizon`` greedy decode steps with per-slot masking, as a Python
-    loop (the JAX package's ``lax.scan``; its temperature sampling is not
-    ported: greedy is what the cross-framework parity compares).
+def sample_tokens(logits: torch.Tensor, *, greedy: bool = True,
+                  temperature: float = 1.0,
+                  generator: torch.Generator | None = None) -> torch.Tensor:
+    """Next tokens [B] int32 from logits [B, V]: ``argmax`` when
+    ``greedy``; else ``argmax(logits / max(T, 1e-6) + G)`` with G Gumbel
+    noise from one [B, V] uniform draw of ``generator``, a sample of
+    ``softmax(logits / T)`` (the method of ``jax.random.categorical``,
+    not its bits)."""
+    if greedy:
+        return torch.argmax(logits, dim=-1).to(torch.int32)
+    u = torch.rand(logits.shape, generator=generator, dtype=torch.float32,
+                   device=logits.device)
+    gumbel = -torch.log(-torch.log(u))
+    return torch.argmax(logits.float() / max(temperature, 1e-6) + gumbel,
+                        dim=-1).to(torch.int32)
 
-    Step t masks a slot (zeroed table row -> null-page writes, per-slot
-    leaves reverted, token 0 fed, position frozen) once it is inactive,
-    out of ``budget`` steps, has hit ``eos`` or has no ``remaining``
-    tokens — bit-identical to ``horizon`` single ``decode_step_paged``
-    calls with the same masking.
 
+def decode_horizon(step, state: Params, tokens: torch.Tensor,
+                   pos: torch.Tensor, *, horizon: int, active: torch.Tensor,
+                   budget: torch.Tensor, remaining: torch.Tensor,
+                   eos: torch.Tensor, greedy: bool = True,
+                   temperature: float = 1.0,
+                   generator: torch.Generator | None = None):
+    """``horizon`` decode steps with per-slot masking, a Python loop in
+    place of the reference's ``lax.scan``.  ``step(state, tokens [B, 1],
+    pos [B], on [B]) -> (logits [B, 1, V], state)``.
+
+    Step t runs every slot and picks each one's next token (one
+    ``sample_tokens`` call, so a sampled step draws [B, V] whatever the
+    slots do, and H fused steps consume what H single steps would); a
+    slot that is inactive, out of ``budget`` steps, has hit ``eos`` or has
+    no ``remaining`` tokens is fed token 0 and keeps its position.
     Returns (tok_block [B, horizon], emitted [B, horizon] prefix mask,
-    new_state, new_pos).
-    """
-    from repro_torch.serving.paged_cache import NULL_PAGE
-    axes = paged_state_axes(state)
+    new_state, new_pos)."""
     st, tok, ps = state, tokens, pos.to(torch.int32)
     act, bud, rem = active.clone(), budget.to(torch.int32), \
         remaining.to(torch.int32)
     toks, ons = [], []
     for _ in range(horizon):
         on = act & (bud > 0)
-        tbl = torch.where(on[:, None], page_table,
-                          torch.full_like(page_table, NULL_PAGE))
-        lg, st2 = decode_step_paged(p, cfg, st, tok, ps, tbl,
-                                    backend=backend)
-        st = tree_map(lambda _, o, n, ax: _keep_slots(o, n, ax, on),
-                      st, st2, axes)
-        nxt = torch.argmax(lg[:, -1], dim=-1).to(torch.int32)
+        lg, st = step(st, tok, ps, on)
+        nxt = sample_tokens(lg[:, -1], greedy=greedy,
+                            temperature=temperature, generator=generator)
         rem = torch.where(on, rem - 1, rem)
         fin = on & ((nxt == eos) | (rem <= 0))
         tok = torch.where(on, torch.where(fin, torch.zeros_like(nxt), nxt),
@@ -465,3 +541,36 @@ def decode_horizon_paged(p: Params, cfg: ModelConfig, state: Params,
         toks.append(nxt)
         ons.append(on)
     return torch.stack(toks, 1), torch.stack(ons, 1), st, ps
+
+
+def decode_horizon_paged(p: Params, cfg: ModelConfig, state: Params,
+                         tokens: torch.Tensor, pos: torch.Tensor,
+                         page_table: torch.Tensor, *, horizon: int,
+                         active: torch.Tensor, budget: torch.Tensor,
+                         remaining: torch.Tensor, eos: torch.Tensor,
+                         greedy: bool = True, temperature: float = 1.0,
+                         generator: torch.Generator | None = None,
+                         backend=None):
+    """``decode_horizon`` over ``decode_step_paged``: a slot masked at a
+    step gets a zeroed table row (null-page writes) and its per-slot
+    leaves reverted, so ``horizon`` fused steps are bit-identical to
+    ``horizon`` single ``decode_step_paged`` calls with the same masking.
+
+    Returns (tok_block [B, horizon], emitted [B, horizon] prefix mask,
+    new_state, new_pos).
+    """
+    from repro_torch.serving.paged_cache import NULL_PAGE
+    axes = paged_state_axes(state)
+
+    def step(st, tok, ps, on):
+        tbl = torch.where(on[:, None], page_table,
+                          torch.full_like(page_table, NULL_PAGE))
+        lg, st2 = decode_step_paged(p, cfg, st, tok, ps, tbl,
+                                    backend=backend)
+        return lg, tree_map(lambda _, o, n, ax: _keep_slots(o, n, ax, on),
+                            st, st2, axes)
+
+    return decode_horizon(step, state, tokens, pos, horizon=horizon,
+                          active=active, budget=budget, remaining=remaining,
+                          eos=eos, greedy=greedy, temperature=temperature,
+                          generator=generator)

@@ -118,8 +118,14 @@ def _dispatch(topi: torch.Tensor, n_experts: int, cap: int):
 
 def moe_ffn(p: Params, x: torch.Tensor, *, n_experts: int, top_k: int,
             capacity_factor: float = 1.25, tap: list | None = None,
-            backend=None) -> torch.Tensor:
-    """Top-k MoE FFN over all experts; x [B, S, d] -> [B, S, d]."""
+            backend=None, groups: int = 1) -> torch.Tensor:
+    """Top-k MoE FFN over all experts; x [B, S, d] -> [B, S, d].
+
+    ``groups`` splits the B*S tokens into that many equal runs, each
+    routed alone with the capacity of its own token count: the dense
+    engine's decode passes one group per slot, as the reference decodes
+    each slot apart.  A group g is routed as virtual experts g*E .. g*E +
+    E - 1, and expert e's GEMM rows are the groups' rows side by side."""
     B, S, d = x.shape
     E = n_experts
     T = B * S
@@ -130,14 +136,18 @@ def moe_ffn(p: Params, x: torch.Tensor, *, n_experts: int, top_k: int,
     topw, topi = torch.topk(gates, top_k, dim=-1)               # [T, k]
     topw = topw / torch.clamp(topw.sum(dim=-1, keepdim=True), min=1e-9)
 
-    cap = int(math.ceil(T * top_k / E * capacity_factor))
-    order, slot, keep = _dispatch(topi, E, cap)
+    cap = int(math.ceil(T // groups * top_k / E * capacity_factor))
+    if groups > 1:
+        group = torch.arange(T, device=x.device) // (T // groups)
+        topi = topi + (group * E)[:, None]
+    order, slot, keep = _dispatch(topi, groups * E, cap)
     t_sort = order // top_k
     w_sort = topw.reshape(-1)[order]
 
-    buf = x.new_zeros((E * cap + 1, d))
+    buf = x.new_zeros((groups * E * cap + 1, d))
     buf[slot] = torch.where(keep[:, None], xt[t_sort], 0)
-    h = buf[:-1].reshape(E, cap, d)
+    h = buf[:-1].reshape(groups, E, cap, d).transpose(0, 1).reshape(
+        E, groups * cap, d)
 
     _moe_tap(tap, p.get("qp_wg"), h.reshape(-1, d), p.get("wg"))
     _moe_tap(tap, p.get("qp_wi"), h.reshape(-1, d), p.get("wi"))
@@ -147,9 +157,11 @@ def moe_ffn(p: Params, x: torch.Tensor, *, n_experts: int, top_k: int,
     _moe_tap(tap, p.get("qp_wo"), hidden.reshape(-1, hidden.shape[-1]),
              p.get("wo"))
     y_exp = _expert_gemm(hidden, p.get("wo"), p.get("qp_wo"), backend)
+    y_exp = y_exp.reshape(E, groups, cap, d).transpose(0, 1)
 
     # combine: entry i's output, weighted in the model dtype (0 if dropped)
-    y_flat = torch.cat([y_exp.reshape(E * cap, d), y_exp.new_zeros((1, d))])
+    y_flat = torch.cat([y_exp.reshape(groups * E * cap, d),
+                        y_exp.new_zeros((1, d))])
     y_ent = y_flat[slot] * torch.where(keep, w_sort, 0.0)[:, None].to(x.dtype)
     # a token's entries sit in ascending expert order in the sorted list;
     # gather them in that order and add them one at a time from zero

@@ -40,6 +40,12 @@ machine without JAX:
   layer) served on the card, the ``cuda`` engine giving the ``oracle``
   engine's tokens, a prefill chunk bit-equal to per-token decode; the
   chunked WKV on the card within the CPU's bound of the CPU's.
+* The dense ``ServingEngine``: sliding-window and softcap attention, the
+  ring's decode and the cache writes on the card against the CPU's;
+  ``recurrentgemma-smoke`` exported and served on the card (batched ==
+  single-stream, ``cuda`` engine == ``oracle`` engine, float32 engine ==
+  ``forward`` greedy), sampling repeatable by seed and across horizons
+  in both engines, and the serve launcher on both engines.
 """
 import numpy as np
 import pytest
@@ -980,3 +986,172 @@ def test_chunked_wkv_on_card_equals_cpu_within_bound(no_tf32, chunk):
 
     assert rel(y_g, y_c) <= 5e-6 and rel(s_g, s_c) <= 5e-6
     assert rel(y_g, y_s.cpu()) <= 5e-6 and rel(s_g, s_s.cpu()) <= 5e-6
+
+
+# ---------------------------------------------------------------------------
+# The dense ServingEngine: local / softcap attention, recurrentgemma
+# ---------------------------------------------------------------------------
+
+def _qkv(seed, B, Sq, Sk, Hq, Hkv, hd=16):
+    rng = np.random.default_rng(seed)
+    return tuple(torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)) for shape in ((B, Sq, Hq, hd), (B, Sk, Hkv, hd),
+                                   (B, Sk, Hkv, hd)))
+
+
+def _close(got, want):
+    """The CPU tests' bound against JAX: rtol 1e-5 / atol 1e-6."""
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("softcap", [None, 2.0])
+@pytest.mark.parametrize("S", [7, 8, 29])
+def test_local_attention_on_card_equals_cpu(no_tf32, S, softcap):
+    """Window 8, MQA 4/1, queries in chunks of 5 and in one."""
+    from repro_torch.models.attention import local_attention
+    cpu = _qkv(S, 2, S, S, 4, 1)
+    for chunk_q in (5, 512):
+        kw = dict(window=8, softcap=softcap, chunk_q=chunk_q)
+        _close(local_attention(*(a.to(no_tf32) for a in cpu), **kw),
+               local_attention(*cpu, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ring", [False, True])
+def test_decode_attention_and_cache_writes_on_card_equal_cpu(no_tf32, ring):
+    """Per-slot positions (the ring's wrapped past its 12 slots), window 6
+    and softcap 2.0, and neither; ``update_kv_cache`` bit-equal."""
+    from repro_torch.models.attention import (decode_attention,
+                                              update_kv_cache)
+    q, k, v = _qkv(4, 3, 1, 12, 4, 1)
+    pos = torch.tensor([3, 17, 30] if ring else [0, 7, 11])
+    for kw in (dict(window=6, softcap=2.0), dict(window=None, softcap=None)):
+        _close(decode_attention(q.to(no_tf32), k.to(no_tf32), v.to(no_tf32),
+                                pos.to(no_tf32), ring=ring, **kw),
+               decode_attention(q, k, v, pos, ring=ring, **kw))
+    kn, vn = (t[:, :1] for t in _qkv(5, 3, 1, 1, 1, 1)[1:])
+    want = update_kv_cache(k, v, kn, vn, pos, ring=ring)
+    got = update_kv_cache(k.to(no_tf32), v.to(no_tf32), kn.to(no_tf32),
+                          vn.to(no_tf32), pos.to(no_tf32), ring=ring)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+
+
+def _recurrentgemma_export(dev):
+    """``recurrentgemma-smoke`` calibrated and exported (mix2_ffn4) on
+    the CPU, moved to ``dev``."""
+    from repro_torch.checkpoint import to_device
+    from repro_torch.configs import get_smoke
+    from repro_torch.models import init_lm
+    from repro_torch.quant import (calibrate_model, export_quantized,
+                                   policy_presets)
+    cfg = get_smoke("recurrentgemma-2b").with_quant(
+        policy_presets()["mix2_ffn4"])
+    params = init_lm(cfg, seed=1, device="cpu")
+    tok = np.random.default_rng(2).integers(0, cfg.vocab, (2, 24))
+    deploy, _ = export_quantized(calibrate_model(params, cfg,
+                                                 {"tokens": tok}))
+    return to_device(deploy, dev), cfg
+
+
+def _dense_run(eng, spec):
+    from repro_torch.serving import Request
+    return {r.uid: r.out for r in eng.run(
+        [Request(uid=u, tokens=t, max_new_tokens=m) for u, t, m in spec])}
+
+
+def _rg_spec(vocab, seed=3):
+    rng = np.random.default_rng(seed)
+    return [(i, rng.integers(0, vocab, size=n).astype(np.int32), m)
+            for i, (n, m) in enumerate([(5, 9), (21, 7), (12, 8)])]
+
+
+@pytest.mark.cuda
+def test_recurrentgemma_dense_engine_on_card(no_tf32):
+    """Exported ``recurrentgemma-smoke`` (window 16; prompts up to 21
+    tokens, so decode wraps the ring) on the card: 3 requests batched on
+    3 slots give each request's tokens served alone (the fixed blocks
+    make a slot's float values independent of the batch), the ``cuda``
+    engine gives the ``oracle`` engine's tokens, and the kernels
+    ``apsq_matmul`` (decode, M = 3) and ``apsq_matmul_m1`` (prefill,
+    M = 1) launch."""
+    from repro_torch.serving import ServingEngine
+    deploy, cfg = _recurrentgemma_export(no_tf32)
+    spec = _rg_spec(cfg.vocab)
+    kw = dict(cache_len=40, decode_horizon=4)
+    _build.reset_launch_counts()
+    batched = _dense_run(ServingEngine(deploy, cfg, max_batch=3,
+                                       backend="cuda", **kw), spec)
+    counts = dict(_build.launch_counts)
+    for k in ("apsq_matmul", "apsq_matmul_m1"):
+        assert counts.get(k, 0) > 0, (k, counts)
+    assert counts.get("int8_kv_attention", 0) == 0
+    single = {u: _dense_run(ServingEngine(deploy, cfg, max_batch=1,
+                                          backend="cuda", **kw),
+                            [(u, t, m)])[u] for u, t, m in spec}
+    assert batched == single
+    assert _dense_run(ServingEngine(deploy, cfg, max_batch=3,
+                                    backend="oracle", **kw), spec) == batched
+
+
+@pytest.mark.cuda
+def test_recurrentgemma_float_engine_matches_forward_on_card(no_tf32):
+    """Float32 ``recurrentgemma-smoke`` on the card: the engine's greedy
+    tokens equal ``forward``'s, token by token over the whole sequence."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.models import forward, init_lm
+    from repro_torch.serving import ServingEngine
+    cfg = get_smoke("recurrentgemma-2b")
+    params = init_lm(cfg, seed=0, device=no_tf32)
+    for u, prompt, n in _rg_spec(cfg.vocab, seed=4):
+        out = _dense_run(ServingEngine(params, cfg, max_batch=2,
+                                       cache_len=64), [(u, prompt, n)])[u]
+        seq = [int(t) for t in prompt]
+        for _ in range(n):
+            lg = forward(params, cfg, torch.tensor([seq], device=no_tf32))
+            seq.append(int(lg[0, -1].argmax()))
+        assert out == seq[len(prompt):], u
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["dense", "paged"])
+def test_sampling_on_card_repeats_and_is_horizon_independent(no_tf32,
+                                                             which):
+    """T = 0.8 on the card (the generator lives there): one seed gives
+    the same tokens twice and at horizons 1 and 4."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.models import init_lm
+    from repro_torch.serving import PagedServingEngine, ServingEngine
+    arch = "recurrentgemma-2b" if which == "dense" else "tinyllama-1.1b"
+    cfg = get_smoke(arch)
+    params = init_lm(cfg, seed=0, device=no_tf32)
+    rng = np.random.default_rng(5)
+    spec = [(i, rng.integers(0, cfg.vocab, size=n).astype(np.int32), m)
+            for i, (n, m) in enumerate([(5, 9), (7, 7), (8, 5)])]
+
+    def run(h):
+        kw = dict(max_batch=3, decode_horizon=h, greedy=False,
+                  temperature=0.8, seed=3)
+        eng = (ServingEngine(params, cfg, cache_len=48, **kw)
+               if which == "dense" else
+               PagedServingEngine(params, cfg, page_size=4, n_pages=40,
+                                  prefill_chunk=8, **kw))
+        return _dense_run(eng, spec)
+
+    a = run(1)
+    assert run(1) == a and run(4) == a
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("engine", ["dense", "paged"])
+def test_serve_launcher_on_card(no_tf32, engine, capsys):
+    """``python -m repro_torch.launch.serve --smoke --exported`` on the
+    card (its default device)."""
+    from repro_torch.launch.serve import main
+    arch = "recurrentgemma-2b" if engine == "dense" else "tinyllama-1.1b"
+    done = main(["--arch", arch, "--smoke", "--exported", "--engine",
+                 engine, "--requests", "3", "--max-new-tokens", "4",
+                 "--max-batch", "2", "--cache-len", "64"])
+    assert len(done) == 3 and "[serve] 3 requests, 12 tokens" in (
+        capsys.readouterr().out)

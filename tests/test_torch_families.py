@@ -21,8 +21,9 @@ on the CPU at smoke size: ``starcoder2-smoke`` (LayerNorm, GELU MLP),
   that first appears at step >= 1, decode horizon 4.
 * The port's invariants per family: batched == single-stream, fused
   horizon == stepwise.
-* ``check_ported`` still refuses the block (local attention) and the
-  families (encoder-decoder, vision-language) the port does not serve.
+* ``check_ported`` still refuses the families (encoder-decoder,
+  vision-language) the port does not serve; local attention constructs,
+  and the paged path still refuses it, as the reference's does.
 """
 import dataclasses
 import functools
@@ -325,6 +326,15 @@ def test_batched_equals_single_stream_and_horizon_equals_stepwise(family):
     dict(family="vlm")], ids=["local", "encdec", "frontend"])
 def test_check_ported_still_refuses(change):
     cfg = get_smoke("starcoder2-15b").scaled(**change)
+    if "block_pattern" in change:   # the dense ServingEngine's, not paged
+        from repro_torch.models import init_paged_decode_state
+        params = init_lm(cfg.check_ported(), seed=0, device="cpu")
+        with pytest.raises(NotImplementedError):
+            init_paged_decode_state(cfg, 1, page_size=4, n_pages=2,
+                                    device="cpu")
+        with pytest.raises(NotImplementedError):
+            PagedServingEngine(params, cfg)
+        return
     with pytest.raises(NotImplementedError):
         cfg.check_ported()
     with pytest.raises(NotImplementedError):

@@ -181,8 +181,8 @@ def _jax_model() -> dict:
 def test_rwkv6_config_is_the_jax_packages(which):
     """``rwkv6-3b`` and ``rwkv6-smoke``: every field the port's
     ``ModelConfig`` has equals the JAX package's; the config validates,
-    and ``check_ported`` admits it and a hybrid with a remainder layer,
-    but still refuses local attention."""
+    and ``check_ported`` admits it and a hybrid with a remainder layer;
+    the paged engine's state still refuses local attention."""
     import repro.configs.rwkv6_3b as j_mod
     import repro_torch.configs.rwkv6_3b as t_mod
     jc, tc = ((j_mod.CONFIG, t_mod.CONFIG) if which == "CONFIG"
@@ -200,8 +200,10 @@ def test_rwkv6_config_is_the_jax_packages(which):
         hybrid.scaled(d_rnn=None).validate()
     with pytest.raises(ValueError):
         tc.scaled(wkv_impl="parallel").validate()
+    local = hybrid.scaled(block_pattern=("rglru", "local")).check_ported()
     with pytest.raises(NotImplementedError):
-        hybrid.scaled(block_pattern=("rglru", "local")).check_ported()
+        init_paged_decode_state(local, 1, page_size=4, n_pages=2,
+                                device="cpu")
 
 
 # ---------------------------------------------------------------------------
