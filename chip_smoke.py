@@ -179,14 +179,43 @@ Phases (each exits non-zero on failure):
              greedy tokens reported with top-2 margins.  Records tokens/s
              with prefill and decode seconds apart, peak memory,
              calibrate_s, export_s and the launch counts.
+  seamless_serve  full-width SeamlessM4T-v2-large (24 encoder and 24
+             decoder layers, d=1024, 16/16 heads at hd 64, GELU d_ff
+             8192, LayerNorm, vocab 256206, bf16, random weights from
+             seed 0; the audio frontend a stub: frame embeddings) under
+             enc_heavy (encoder APSQ gs=1 n_p=8, the rest gs=4 n_p=4):
+             init_lm -> calibrate_model (tokens and frames) ->
+             export_quantized -> del the float params -> 8 requests of
+             256 frames and a 4-token prompt each: ``encode`` at B = 8
+             (kernel 1 at M = 2048), then a greedy loop of
+             ``decode_step(enc_out=)`` to 32 tokens each (kernel 1 at
+             M = 8, and at M = 2048 for the cross-attention's K/V at
+             every step).  Checks: every deployed GEMM bit for bit at
+             M = 1, 3, 8, 16 and three at M = 2048; 3 requests alone at
+             B = 1 give the batched tokens (kernel 4 there); ``encode``
+             on ``cuda`` == ``oracle`` bit for bit and both decode the
+             same tokens on 3 requests; finite logits.  Reports
+             teacher-forced ``forward(enc_embeds=)``'s agreement with
+             the decoded tokens, encode_s, decode_s, tokens/s, peak
+             memory and the launch counts.
+  vlm_2l     InternVL2-26B's LM at full width (d=6144, 48/8 heads at hd
+             128, SwiGLU d_ff 16384, vocab 92553, 256 image tokens
+             through the float frontend_proj stub) cut to 2 of 48
+             layers, mix2_ffn4: calibrate with patch embeddings, export,
+             every deployed GEMM bit-exact, ``forward(embeds=)`` on
+             ``cuda`` == ``oracle`` bit for bit with the image prefix
+             moving the text logits, then the paged engine serves 4 text
+             requests, batched == single-stream.
 
-The main path runs in thirteen configurations, each its own path:
+The main path runs in sixteen configurations, each its own path:
 ``serve`` (mix2_ffn4: every layer APSQ), ``w8a8`` (ffn_only: W8A8
 attention projections), ``moe_serve`` (OLMoE, mix2_ffn4), ``moe_w8a8``
 (OLMoE, W8A8), ``load`` (the restored JAX export), ``sc2_serve``,
 ``dense_2l``'s two models, ``train`` and ``moe_train`` (their export ->
 serve tails; the training step itself is plain PyTorch and reaches no
-kernel), ``qwen3_2l``, ``rwkv_serve`` and ``rg_serve``.  Launch
+kernel), ``qwen3_2l``, ``rwkv_serve``, ``rg_serve``,
+``seamless_serve`` (its batched run; its single-stream runs are
+``seamless_serve/single``) and ``vlm_2l``.  Launch
 counts are zeroed just before each and read just after; every kernel of
 each path must have launched.  The line before the
 last holds the per-kernel record: ``launches`` is the count of the path
@@ -213,7 +242,8 @@ INT8_OPS_PER_S = 1979e12       # H100 SXM int8 tensor cores, dense
 F32_OPS_PER_S = 67e12          # H100 SXM float32 outside the tensor cores
 PHASES = ("build", "kernels", "reference", "serve", "w8a8", "moe_reference",
           "moe_serve", "moe_w8a8", "load", "sc2_serve", "dense_2l", "train",
-          "moe_train", "qwen3_2l", "rwkv_serve", "rg_serve")
+          "moe_train", "qwen3_2l", "rwkv_serve", "rg_serve", "seamless_serve",
+          "vlm_2l")
 FIXTURE = os.path.join(ROOT, "tests", "fixtures",
                        "jax_export_starcoder2_smoke")
 NO_BATCHED_INT8_MM = ("none: PyTorch has no single call for a batched "
@@ -265,6 +295,9 @@ PATH_KERNELS = {
     "qwen3_2l": ("apsq_matmul", "apsq_expert_matmul", "int8_kv_attention"),
     "rwkv_serve": ("apsq_matmul", "apsq_matmul_m1"),
     "rg_serve": ("apsq_matmul", "apsq_matmul_m1"),
+    "seamless_serve": ("apsq_matmul",),
+    "seamless_serve/single": ("apsq_matmul", "apsq_matmul_m1"),
+    "vlm_2l": ("apsq_matmul", "apsq_matmul_m1", "int8_kv_attention"),
 }
 
 
@@ -424,12 +457,14 @@ APSQ_M = (1, 2, 4, 8, 16, 32)   # decode slots, prefill chunks, 32-row blocks
 APSQ_KN = ((2048, 256), (2048, 2048), (2048, 5632), (5632, 2048))
 
 
-def apsq_case(torch, ref, gen, dev, m, k, n):
+def apsq_case(torch, ref, gen, dev, m, k, n, n_p=None, gs=None):
     """Random codes at a TinyLlama projection [m, k] @ [k, n] under
-    mix2_ffn4 (attention n_p=4 gs=2, FFN n_p=8 gs=4), with per-column
-    exponents; weight copies rotate so the timed reads miss the 50 MB
-    L2.  Returns x, the weight copies, exps and gs."""
-    n_p, gs = (4, 2) if n != 5632 and k == 2048 else (8, 4)
+    mix2_ffn4 (attention n_p=4 gs=2, FFN n_p=8 gs=4; or the ``n_p`` and
+    ``gs`` given), with per-column exponents; weight copies rotate so the
+    timed reads miss the 50 MB L2.  Returns x, the weight copies, exps
+    and gs."""
+    if n_p is None:
+        n_p, gs = (4, 2) if n != 5632 and k == 2048 else (8, 4)
     copies = max(1, math.ceil(120e6 / (k * n)))
     ws = [torch.randint(-128, 128, (k, n), generator=gen, device=dev,
                         dtype=torch.int8) for _ in range(copies)]
@@ -576,7 +611,45 @@ def gemm_checks(torch, records: dict) -> list:
                          "codes": [xv, wv], "baseline_matmul": {
                              "max_abs_err": int((got.long() - want.long())
                                                 .abs().max())}})
+    rows += encoder_rows(torch, ops, ref, dev, records, errors)
     return rows, errors
+
+
+# SeamlessM4T-v2-large's encoder GEMMs under enc_heavy: M = 8 requests x
+# 256 frames; the FFN at gs=1 n_p=8 (the encoder's rule), the
+# cross-attention's K/V projection at gs=4 n_p=4 (every other layer's)
+ENCODER_ROWS = ((2048, 1024, 8192, 8, 1, "enc_ffn_wi"),
+                (2048, 8192, 1024, 8, 1, "enc_ffn_wo"),
+                (2048, 1024, 1024, 4, 4, "xattn_wk"))
+
+
+def encoder_rows(torch, ops, ref, dev, records: dict, errors: list) -> list:
+    """``apsq_matmul`` at the encoder's M = 2048 (``ENCODER_ROWS``):
+    bit-exact, device and eager ms beside the plain version, its bound
+    and share, each of its two kernels' ms, the bytes of its int32
+    scratch ``part`` ([n_p * splits, M, N]) and ``torch._int_mm`` at the
+    same shape (the W8A8 product: a yardstick, not the same function)."""
+    gen = torch.Generator(device=dev).manual_seed(2048)
+    rows = []
+    for m, k, n, n_p, gs, label in ENCODER_ROWS:
+        x, ws, exps, gs = apsq_case(torch, ref, gen, dev, m, k, n, n_p, gs)
+        rec = apsq_rec(torch, ops, ref, x, ws, exps, gs, errors)
+        plan = ops.apsq_plan(m, n, k, n_p)
+        rec.update(
+            share=rec["bound_ms"] / rec["ms"] if rec["ms"] else None,
+            plan=list(plan), part_bytes=n_p * plan.splits * m * n * 4,
+            stages_ms=stages_ms(torch, lambda i: ops.apsq_matmul_int8(
+                x, ws[i], exps, gs=gs), len(ws)),
+            library="torch._int_mm (W8A8: not the same function)",
+            library_ms=device_ms(torch, lambda i: torch._int_mm(x, ws[i]),
+                                 len(ws)),
+            shape=f"M={m} K={k} N={n} n_p={n_p} gs={gs}")
+        rows.append({"M": m, "K": k, "N": n, "n_p": n_p, "gs": gs,
+                     "model": f"seamless-m4t-large-v2 {label}",
+                     "apsq_matmul": rec})
+        records["apsq_matmul"][f"at_{label}_m{m}"] = rec
+        del ws
+    return rows
 
 
 def expert_rec(torch, ops, ref, x, w, exps, gs, errors: list,
@@ -1341,12 +1414,14 @@ def release(torch) -> None:
     torch.cuda.reset_peak_memory_stats()
 
 
-def deployed_gemm_checks(torch, tree, errors: list) -> int:
+def deployed_gemm_checks(torch, tree, errors: list,
+                         ms=(1, 3, 8, 16)) -> int:
     """Every deployed GEMM of ``tree`` (on the card) on random activation
-    codes at M = 1 (the ``__dp4a`` body of a dense APSQ GEMM), 3, 8 and 16
-    (an expert bank: M rows for each expert), at the layer's own K, N,
-    n_p and gs, against its plain version on the same codes, bit for bit;
-    returns how many layers were held."""
+    codes at each M of ``ms`` (by default 1, the ``__dp4a`` body of a
+    dense APSQ GEMM, 3, 8 and 16; an expert bank: M rows for each
+    expert), at the layer's own K, N, n_p and gs, against its plain
+    version on the same codes, bit for bit; returns how many layers were
+    held."""
     from repro_torch.core import DeployedQuantState, psum_group_size
     from repro_torch.kernels.apsq_matmul import ops, ref
     gen = None
@@ -1365,7 +1440,7 @@ def deployed_gemm_checks(torch, tree, errors: list) -> int:
         bank = w.dim() == 3
         if gen is None:
             gen = torch.Generator(device=w.device).manual_seed(4)
-        for m in (1, 3, 8, 16):
+        for m in ms:
             x = torch.randint(-128, 128, w.shape[:-2] + (m, w.shape[-2]),
                               generator=gen, device=w.device,
                               dtype=torch.int8)
@@ -2252,6 +2327,300 @@ def phase_rg_serve(torch, np, _build, cfg, dev, profile: bool = False):
     return info, problems
 
 
+SEAMLESS_FRAMES = 256        # frame embeddings per request (encoder S)
+SEAMLESS_PROMPT = 4          # decoder prompt tokens per request
+SEAMLESS_NEW = 32            # tokens each request emits
+
+
+def encdec_greedy(torch, deploy, cfg, frames, prompts, n_new: int, dev,
+                  backend="auto", profile: bool = False,
+                  info: dict | None = None):
+    """``encode`` the frames [B, S_enc, d], then the greedy loop of
+    ``decode_step(enc_out=)`` over a fresh dense state: the prompt
+    tokens [B, P] one at a time, then each step's argmax, ``n_new``
+    tokens per request (the last prompt step gives the first).  With
+    ``profile``, trace 8 decode steps at the loop's middle into
+    ``info["profile"]``.  Returns (tokens [B][n_new], enc_out, encode_s,
+    decode_s, every step's logits finite)."""
+    from repro_torch.models import decode_step, encode, init_decode_state
+    B, P = prompts.shape
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        enc = encode(deploy, cfg, frames, backend=backend)
+    sync(torch, dev)
+    encode_s = time.perf_counter() - t0
+    st = init_decode_state(cfg, B, P + n_new, device=dev)
+    cur, out = prompts[:, :1], []
+    finite = torch.ones((), dtype=torch.bool, device=dev)
+    window = range(P + 7, P + 15) if profile else ()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        for t in range(P + n_new - 1):
+            if window and t == window[0]:
+                from torch.profiler import ProfilerActivity
+                sync(torch, dev)
+                prof = torch.profiler.profile(
+                    activities=[ProfilerActivity.CUDA])
+                prof.__enter__()
+                tw = time.perf_counter()
+            lg, st = decode_step(deploy, cfg, st, cur, t, enc_out=enc,
+                                 backend=backend)
+            nxt = lg[:, -1].argmax(-1)
+            finite &= torch.isfinite(lg).all()
+            if t >= P - 1:
+                out.append(nxt)
+            cur = prompts[:, t + 1:t + 2] if t + 1 < P else nxt[:, None]
+            if window and t == window[-1]:
+                sync(torch, dev)
+                wall = time.perf_counter() - tw
+                prof.__exit__(None, None, None)
+                info["profile"] = profile_summary(prof, wall)
+                info["profile"].update(
+                    window_s=wall, window=f"8 decode steps at {B} slots")
+    sync(torch, dev)
+    decode_s = time.perf_counter() - t0
+    return (torch.stack(out, 1).tolist(), enc, encode_s, decode_s,
+            bool(finite))
+
+
+def forward_agreement(torch, deploy, cfg, frames, prompts, toks, dev):
+    """Teacher-forced ``forward(enc_embeds=)`` over each request's prompt
+    and its decoded tokens: how many of its argmaxes equal the decode
+    loop's tokens, and the top-2 margin where they differ (the two paths
+    round bf16 attention differently)."""
+    from repro_torch.models import forward
+    P, agree, differ = prompts.shape[1], 0, []
+    for i, out in enumerate(toks):
+        seq = torch.cat([prompts[i:i + 1], torch.tensor(
+            [out[:-1]], dtype=prompts.dtype, device=dev)], 1)
+        with torch.no_grad():
+            lg = forward(deploy, cfg, seq,
+                         enc_embeds=frames[i:i + 1])[0, P - 1:].float()
+        top = torch.topk(lg, 2, dim=-1).values
+        ref = lg.argmax(-1).tolist()
+        for j, (a, b) in enumerate(zip(out, ref)):
+            if a == b:
+                agree += 1
+            else:
+                differ.append({"request": i, "step": j, "decode": a,
+                               "forward": b,
+                               "margin": float(top[j, 0] - top[j, 1])})
+    return {"agree": agree, "of": sum(len(o) for o in toks),
+            "differ": differ}
+
+
+def phase_seamless_serve(torch, np, _build, cfg, dev, profile: bool = False):
+    """Full-width SeamlessM4T-v2-large (24 encoder and 24 decoder layers,
+    d=1024, 16/16 heads at hd 64, GELU d_ff 8192, LayerNorm, vocab
+    256206, bf16, random weights from seed 0; the audio frontend a stub:
+    frame embeddings): init -> calibrate (4 x 16 tokens, 4 x 256 frames)
+    -> export (``enc_heavy``: the encoder APSQ gs=1 n_p=8, the decoder's
+    self- and cross-attention and FFN gs=4 n_p=4; the head float) -> del
+    the float params -> 8 requests, each its own 256 frames and a
+    4-token prompt: ``encode`` at B = 8, then 32 greedy tokens each
+    through ``decode_step(enc_out=)`` (the cross-attention's K/V
+    recomputed from ``enc_out`` at every step, as the reference does;
+    the path's zeroed run).  Checks: every deployed GEMM bit for bit
+    against its plain version at M = 1, 3, 8, 16, and one encoder ``wi``
+    and ``wo`` and one ``xattn.wk`` at M = 2048; finite logits; 3
+    requests encoded and decoded alone at B = 1 give the batched tokens
+    (their own zeroed run, ``seamless_serve/single``); ``encode`` on the
+    ``cuda`` backend equals ``oracle`` bit for bit, and on 3 requests
+    with 8 new tokens the two backends decode the same tokens; no
+    ``int8_kv_attention`` launch.  Reported: teacher-forced
+    ``forward(enc_embeds=)``'s agreement with the decoded tokens."""
+    from repro_torch.models import init_lm
+    from repro_torch.quant import calibrate_model, export_quantized, \
+        policy_presets
+    cfg = cfg.with_quant(policy_presets()["enc_heavy"])
+    rng = np.random.default_rng(71)
+    info, problems = {"config": cfg.name, "layers": cfg.n_layers,
+                      "enc_layers": cfg.n_enc_layers}, []
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    params = init_lm(cfg, seed=0, device=dev)
+    sync(torch, dev)
+    info["init_s"] = time.perf_counter() - t0
+    info["params_gb"] = sum(t.numel() * t.element_size() for t in
+                            iter_tensors(params)) / 1e9
+    t0 = time.perf_counter()
+    params = calibrate_model(params, cfg, {
+        "tokens": rng.integers(0, cfg.vocab, size=(4, 16)),
+        "enc_embeds": rng.standard_normal(
+            (4, SEAMLESS_FRAMES, cfg.d_model), dtype=np.float32)})
+    sync(torch, dev)
+    info["calibrate_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    deploy, report = export_quantized(params)
+    sync(torch, dev)
+    info["export_s"] = time.perf_counter() - t0
+    info["peak_mem_export_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del params
+    release(torch)
+    info["int8_gb"] = sum(r["int8_bytes"] * r["count"]
+                          for r in report.values()) / 1e9
+    info["deployed_gemms_held"] = deployed_gemm_checks(torch, deploy,
+                                                       problems)
+    enc0, dec0 = deploy["encoder"]["units"]["u0"]["0"], deploy["units"][
+        "u0"]["0"]
+    deployed_gemm_checks(torch, {
+        "encoder.unit.0.ffn.wi": enc0["ffn"]["wi"],
+        "encoder.unit.0.ffn.wo": enc0["ffn"]["wo"],
+        "unit.0.xattn.wk": dec0["xattn"]["wk"]}, problems,
+        ms=(8 * SEAMLESS_FRAMES,))
+    frames = torch.from_numpy(rng.standard_normal(
+        (8, SEAMLESS_FRAMES, cfg.d_model), dtype=np.float32)).to(dev)
+    prompts = torch.from_numpy(rng.integers(
+        0, cfg.vocab, size=(8, SEAMLESS_PROMPT))).to(dev)
+    _build.reset_launch_counts()
+    toks, enc, info["encode_s"], info["decode_s"], finite = encdec_greedy(
+        torch, deploy, cfg, frames, prompts, SEAMLESS_NEW, dev,
+        profile=profile, info=info)
+    info["launches"] = dict(_build.launch_counts)
+    n_tok = sum(len(o) for o in toks)
+    info.update(
+        requests=len(toks), generated_tokens=n_tok,
+        serve_s=info["encode_s"] + info["decode_s"],
+        decode_step_ms=info["decode_s"] * 1e3 / (
+            SEAMLESS_PROMPT + SEAMLESS_NEW - 1),
+        logits_finite=finite, profiled=profile,
+        tokens_sha256=hashlib.sha256(json.dumps(
+            sorted(enumerate(toks))).encode()).hexdigest(),
+        peak_mem_gb=max(torch.cuda.max_memory_allocated() / 1e9,
+                        info["peak_mem_export_gb"]))
+    info["tokens_per_s"] = n_tok / info["serve_s"]
+    if not finite:
+        problems.append("non-finite decode logits")
+    problems += missing_launches("seamless_serve", info["launches"])
+    if info["launches"].get("int8_kv_attention", 0):
+        problems.append("int8_kv_attention launched on the enc-dec path")
+    # batched == single-stream: 3 requests, each encoded and decoded alone
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    single = [encdec_greedy(torch, deploy, cfg, frames[i:i + 1],
+                            prompts[i:i + 1], SEAMLESS_NEW, dev)[0][0]
+              for i in range(3)]
+    info["single_stream_s"] = time.perf_counter() - t0
+    info["paths"] = {"seamless_serve/single": dict(_build.launch_counts)}
+    problems += missing_launches("seamless_serve/single",
+                                 info["paths"]["seamless_serve/single"])
+    div = first_divergence(dict(enumerate(single)),
+                           {i: toks[i] for i in range(3)})
+    info["batched_equals_single"] = div is None
+    if div is not None:
+        problems.append(f"batched != single-stream at (request, step) {div}")
+    # cuda == oracle: the encoder at B = 8, and 3 requests x 8 tokens
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        from repro_torch.models import encode
+        enc_oracle = encode(deploy, cfg, frames, backend="oracle")
+    sub = {b: encdec_greedy(torch, deploy, cfg, frames[:3], prompts[:3], 8,
+                            dev, backend=b)[0] for b in ("cuda", "oracle")}
+    info["cuda_vs_oracle"] = {
+        "encode_equal": bool(torch.equal(enc, enc_oracle)),
+        "tokens_equal": sub["cuda"] == sub["oracle"],
+        "tokens": sum(len(o) for o in sub["oracle"]),
+        "seconds": time.perf_counter() - t0}
+    if not info["cuda_vs_oracle"]["encode_equal"]:
+        problems.append("encode on cuda != oracle")
+    if not info["cuda_vs_oracle"]["tokens_equal"]:
+        problems.append(f"decode cuda {sub['cuda']} != oracle "
+                        f"{sub['oracle']}")
+    del enc, enc_oracle
+    t0 = time.perf_counter()
+    agreement = forward_agreement(torch, deploy, cfg, frames, prompts, toks,
+                                  dev)
+    info.update(forward_agreement=agreement,
+                forward_agrees=f"{agreement['agree']} of {agreement['of']}",
+                forward_s=time.perf_counter() - t0)
+    return info, problems
+
+
+VLM_LAYERS = 2
+
+
+def phase_vlm_2l(torch, np, _build, cfg, dev):
+    """InternVL2-26B's LM at full width (d=6144, 48/8 heads at hd 128,
+    SwiGLU d_ff 16384, vocab 92553, 256 image tokens; the InternViT a
+    stub: patch embeddings through the float ``frontend_proj``) cut to 2
+    of 48 layers, mix2_ffn4: init -> calibrate (2 x 32 tokens behind 2 x
+    256 patch embeddings) -> export -> every deployed GEMM bit for bit
+    against its plain version -> ``forward(embeds=)`` on 2 x (256 + 16)
+    positions: ``cuda`` equals ``oracle`` bit for bit, finite, and the
+    image prefix changes the text logits -> the paged engine serves 4
+    text requests on 4 slots (the path's zeroed run), each request's
+    tokens equal to it served alone."""
+    from repro_torch.models import forward, init_lm
+    from repro_torch.quant import calibrate_model, export_quantized, \
+        policy_presets
+    from repro_torch.serving import PagedServingEngine, Request
+    cfg = cfg.scaled(n_layers=VLM_LAYERS).with_quant(
+        policy_presets()["mix2_ffn4"])
+    rng = np.random.default_rng(81)
+    info, problems = {"config": cfg.name, "layers": cfg.n_layers}, []
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    params = init_lm(cfg, seed=0, device=dev)
+    sync(torch, dev)
+    info["init_s"] = time.perf_counter() - t0
+    info["params_gb"] = sum(t.numel() * t.element_size() for t in
+                            iter_tensors(params)) / 1e9
+    n_img = cfg.n_frontend_tokens
+    t0 = time.perf_counter()
+    params = calibrate_model(params, cfg, {
+        "tokens": rng.integers(0, cfg.vocab, size=(2, 32)),
+        "embeds": rng.standard_normal((2, n_img, cfg.d_model),
+                                      dtype=np.float32)})
+    deploy, report = export_quantized(params)
+    sync(torch, dev)
+    info["calibrate_export_s"] = time.perf_counter() - t0
+    info["peak_mem_export_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del params
+    release(torch)
+    info["int8_gb"] = sum(r["int8_bytes"] * r["count"]
+                          for r in report.values()) / 1e9
+    info["deployed_gemms_held"] = deployed_gemm_checks(torch, deploy,
+                                                       problems)
+    tok = torch.from_numpy(rng.integers(0, cfg.vocab, size=(2, 16))).to(dev)
+    emb = torch.from_numpy(rng.standard_normal(
+        (2, n_img, cfg.d_model), dtype=np.float32)).to(dev)
+    with torch.no_grad():
+        lg = {b: forward(deploy, cfg, tok, embeds=emb, backend=b)
+              for b in ("cuda", "oracle")}
+        text = forward(deploy, cfg, tok)
+    info["forward"] = {
+        "shape": list(lg["cuda"].shape),
+        "cuda_equals_oracle": bool(torch.equal(lg["cuda"], lg["oracle"])),
+        "finite": bool(torch.isfinite(lg["cuda"]).all()),
+        "prefix_moves_text_logits": float(
+            (lg["cuda"][:, n_img:].float() - text.float()).abs().max())}
+    if not (info["forward"]["cuda_equals_oracle"]
+            and info["forward"]["finite"]
+            and info["forward"]["prefix_moves_text_logits"] > 0
+            and info["forward"]["shape"] == [2, n_img + 16, cfg.vocab]):
+        problems.append(f"forward(embeds=): {info['forward']}")
+    del lg, text
+    reqs = make_requests(np, rng, 4, cfg.vocab, 3, 40, 8, 16, Request)
+    kw = dict(page_size=16, prefill_chunk=16, decode_horizon=4,
+              max_pages_per_slot=4)
+    single, _ = single_stream_check(torch, deploy, cfg, reqs, kw, dev,
+                                    probe_eos=False)
+    done = serve_all(torch, _build, dev, PagedServingEngine(
+        deploy, cfg, max_batch=4, n_pages=4 * 4 + 1, **kw), reqs, False,
+        info)
+    info["peak_mem_gb"] = max(info["peak_mem_gb"] or 0.0,
+                              info["peak_mem_export_gb"])
+    div = first_divergence(single, {r.uid: r.out for r in done})
+    info["batched_equals_single"] = div is None
+    if len(done) != 4:
+        problems.append(f"{len(done)} of 4 requests finished")
+    if div is not None:
+        problems.append(f"batched != single-stream at (request, step) {div}")
+    problems += logits_check(torch, deploy, cfg, reqs[0].tokens, dev, info)
+    problems += missing_launches("vlm_2l", info["launches"])
+    return info, problems
+
+
 # ---------------------------------------------------------------------------
 
 def main() -> int:
@@ -2261,7 +2630,8 @@ def main() -> int:
     ap.add_argument("--profile", action="store_true",
                     help="trace one heartbeat of the serve, moe_serve, "
                          "sc2_serve, rwkv_serve and rg_serve phases' "
-                         "batched engines, "
+                         "batched engines, 8 decode steps of "
+                         "seamless_serve's batched loop, "
                          "and one train "
                          "step of the train and moe_train phases, with "
                          "torch.profiler")
@@ -2281,9 +2651,10 @@ def main() -> int:
     if not os.path.isdir(os.path.join(src, "repro_torch")):
         fail(f"{src}/repro_torch not found: run from a checkout of the repo")
     sys.path.insert(0, src)
-    from repro_torch.configs import (chatglm3_6b, deepseek_7b, olmoe_1b_7b,
-                                     qwen3_moe_235b_a22b, recurrentgemma_2b,
-                                     rwkv6_3b, starcoder2_15b,
+    from repro_torch.configs import (chatglm3_6b, deepseek_7b, internvl2_26b,
+                                     olmoe_1b_7b, qwen3_moe_235b_a22b,
+                                     recurrentgemma_2b, rwkv6_3b,
+                                     seamless_m4t_large_v2, starcoder2_15b,
                                      tinyllama_1_1b)
     from repro_torch.kernels import _build
     cuda = torch.device("cuda")
@@ -2368,6 +2739,14 @@ def main() -> int:
             info, problems = phase_rg_serve(torch, np, _build,
                                             recurrentgemma_2b.CONFIG, cuda,
                                             profile=args.profile)
+        elif phase == "seamless_serve":
+            info, problems = phase_seamless_serve(
+                torch, np, _build, seamless_m4t_large_v2.CONFIG, cuda,
+                profile=args.profile)
+        elif phase == "vlm_2l":
+            info, problems = phase_vlm_2l(torch, np, _build,
+                                          internvl2_26b.CONFIG, cuda)
+            info["cut"] = f"{VLM_LAYERS} of 48 layers (phase time)"
         if "launches" in info:
             launches[phase] = info["launches"]
         launches.update(info.pop("paths", {}))
@@ -2376,7 +2755,7 @@ def main() -> int:
         detail[phase] = info
         short = {k: v for k, v in info.items()
                  if k not in ("gemm", "expert_gemm", "attention", "ptxas",
-                              "profile", "grad_norms")}
+                              "profile", "grad_norms", "forward_agreement")}
         emit({"phase": phase, "ok": not problems, "seconds": round(dt, 3),
               "card": card, **short})
         if problems:

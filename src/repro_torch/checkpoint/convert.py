@@ -9,10 +9,13 @@ Nothing of the JAX package is imported: states are recognised by their
 attribute names (``w_codes``/``ax_exp``/``aw_exp``/``psum_exps`` for a
 deployed state, ``aw``/``ax``/``ap`` for a quantizer state; ``spec``,
 ``name``, ``out_dims`` ride along), and a ``spec`` is rebuilt from its
-fields.  Scan-stacked units (``params["units"]`` keyed by pattern
-position with a leading unit axis) are unstacked into the port's
-``{"u0": ..., "u1": ...}`` layout; a MoE layer's stacked expert states
-(``[U, E, ...]`` leaves) come out as one ``[E, ...]`` state per unit.
+fields.  Scan-stacked units (a ``units`` subtree keyed by pattern
+position with a leading unit axis: the decoder's ``params["units"]``
+under ``scan_layers``, and an encoder-decoder's
+``params["encoder"]["units"]``, which the JAX package stacks always) are
+unstacked into the port's ``{"u0": ..., "u1": ...}`` layout; a MoE
+layer's stacked expert states (``[U, E, ...]`` leaves) come out as one
+``[E, ...]`` state per unit.
 """
 from __future__ import annotations
 
@@ -104,13 +107,21 @@ def unstack_units(units: dict) -> dict:
     return {f"u{i}": _index(units, i) for i in range(n)}
 
 
-def convert_params(tree: dict, *, device=None) -> dict:
-    """JAX-side params tree -> the port's tree on ``device``."""
-    device = resolve_device(device)
-    out = _convert(tree, device)
-    if "units" in out:
+def unstack_all_units(tree):
+    """Unstack every ``units`` subtree of ``tree`` (``unstack_units``):
+    the decoder's and an encoder's, and a trainer checkpoint's
+    ``params``, ``opt/m`` and ``opt/v`` copies of them."""
+    if not isinstance(tree, dict):
+        return tree
+    out = {k: unstack_all_units(v) for k, v in tree.items()}
+    if isinstance(out.get("units"), dict):
         out["units"] = unstack_units(out["units"])
     return out
+
+
+def convert_params(tree: dict, *, device=None) -> dict:
+    """JAX-side params tree -> the port's tree on ``device``."""
+    return unstack_all_units(_convert(tree, resolve_device(device)))
 
 
 def to_device(tree, device):

@@ -47,7 +47,7 @@ from repro_torch.core import (DeployedQuantState, PsumQuantConfig,
                               QuantConfig, QuantState)
 from repro_torch.device import resolve_device
 from repro_torch.models.model import tree_leaves, tree_map
-from .convert import unstack_units
+from .convert import unstack_all_units
 
 _SEP = "/"
 
@@ -273,16 +273,4 @@ def restore(ckpt_dir: str, step: int | None = None, *,
         key: _load_leaf(os.path.join(path, _key_to_fname(key)), meta, device)
         for key, meta in manifest["leaves"].items()})
     tree = _reify_quant_states(tree, manifest.get("quant_states") or {})
-    return _unstack_all_units(tree), manifest
-
-
-def _unstack_all_units(tree):
-    """Unstack every ``units`` subtree: an export's at the top, and a
-    trainer checkpoint's ``params/units``, ``opt/m/units`` and
-    ``opt/v/units`` (the JAX trainer keeps them scan-stacked)."""
-    if not isinstance(tree, dict):
-        return tree
-    out = {k: _unstack_all_units(v) for k, v in tree.items()}
-    if isinstance(out.get("units"), dict):
-        out["units"] = unstack_units(out["units"])
-    return out
+    return unstack_all_units(tree), manifest

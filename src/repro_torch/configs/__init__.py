@@ -10,7 +10,9 @@ _MODULES = {"tinyllama-1.1b": "tinyllama_1_1b",
             "deepseek-7b": "deepseek_7b",
             "qwen3-moe-235b-a22b": "qwen3_moe_235b_a22b",
             "rwkv6-3b": "rwkv6_3b",
-            "recurrentgemma-2b": "recurrentgemma_2b"}
+            "recurrentgemma-2b": "recurrentgemma_2b",
+            "seamless-m4t-large-v2": "seamless_m4t_large_v2",
+            "internvl2-26b": "internvl2_26b"}
 
 ARCH_NAMES = tuple(_MODULES)
 

@@ -12,8 +12,9 @@ copied, so ``batch_at(step)`` gives the same tokens bit for bit).
 
 The corpus is a synthetic "language": Zipfian unigrams mixed with copied
 motifs, so cross-entropy falls meaningfully in a short QAT run while no
-file is needed.  The frontend fields (audio/vision embeddings) stay in
-``DataConfig``; the model inputs they feed are not ported yet.
+file is needed.  A ``frontend`` adds Gaussian embeddings [B,
+n_frontend_tokens, d_model]: ``embeds`` for a vision stub (prepended to
+the tokens), ``enc_embeds`` for an audio stub (the encoder's input).
 """
 from __future__ import annotations
 

@@ -60,6 +60,10 @@ def main(argv=None) -> list:
         ServingEngine
 
     cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
+    if cfg.encdec:
+        raise SystemExit("enc-dec serving requires encoder inputs: decode "
+                         "through repro_torch.models.decode_step(enc_out="
+                         "encode(...)) for seamless")
     if args.exported and cfg.policy is None:
         # integer serving needs quantizer state: the paper's APSQ preset
         cfg = cfg.with_quant(QuantConfig.apsq(gs=2, n_p=4))

@@ -42,7 +42,10 @@ def build(args):
     tcfg = TrainConfig(microbatches=args.microbatches, steps=args.steps,
                        save_every=args.save_every, ckpt_dir=args.ckpt_dir)
     data = DataConfig(vocab=cfg.vocab, seq_len=args.seq_len,
-                      global_batch=args.global_batch)
+                      global_batch=args.global_batch, frontend=cfg.frontend,
+                      d_model=cfg.d_model,
+                      n_frontend_tokens=cfg.n_frontend_tokens
+                      or args.seq_len)
     return cfg, ocfg, tcfg, data
 
 

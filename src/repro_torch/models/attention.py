@@ -1,10 +1,13 @@
 """GQA attention block (port of ``repro/models/attention.py``, three modes).
 
-  * ``cache is None``: full-sequence causal attention, used by
-    calibration and training.  A plain softmax over the masked scores
-    (``causal_attention``); a ``local`` layer's sliding window goes
+  * ``cache is None``: full-sequence attention, used by calibration,
+    training and the encoder.  A plain softmax over the masked scores
+    (``causal_attention``; ``full_attention`` when ``causal`` is False,
+    the encoder's); a ``local`` layer's sliding window goes
     through ``local_attention``, the same masked softmax per query chunk
     over the keys that chunk can see, so nothing of size [S, S] is made.
+    Cross-attention (``xkv``, the encoder's output) takes K and V from
+    ``xkv``, attends without a mask and applies no RoPE.
     The JAX package's chunked online-softmax form and its windowed
     gather are TPU memory layouts of the same functions, not kernels.
   * ``cache = {"k", "v"}``: single-token decode against the dense float
@@ -51,8 +54,9 @@ def init_attention(gen, d_model: int, n_heads: int, n_kv_heads: int,
 def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             mask: torch.Tensor, softcap: float | None) -> torch.Tensor:
     """q [B, Sq, Hq, hd] against k/v [B, Sk, Hkv, hd] where ``mask``
-    ([Sq, Sk], or [B, 1, 1, Sq, Sk]) is True -> [B, Sq, Hq, hd] in
-    v.dtype; GQA groups query heads as ``reshape(B, Sq, Hkv, G, hd)``."""
+    ([Sq, Sk], or [B, 1, 1, Sq, Sk]; None: every key) is True -> [B, Sq,
+    Hq, hd] in v.dtype; GQA groups query heads as ``reshape(B, Sq, Hkv,
+    G, hd)``."""
     B, Sq, Hq, hd = q.shape
     Hkv = k.shape[2]
     G = Hq // Hkv
@@ -60,7 +64,8 @@ def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      k).float() * (1.0 / math.sqrt(hd))
     if softcap is not None:
         s = softcap * torch.tanh(s / softcap)
-    s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+    if mask is not None:
+        s = torch.where(mask, s, torch.full_like(s, NEG_INF))
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bhgqk,bkhd->bqhgd", p.to(v.dtype), v)
     return out.reshape(B, Sq, Hq, hd).to(v.dtype)
@@ -79,6 +84,15 @@ def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if window is not None:
         mask &= (qpos[:, None] - kpos[None, :]) < window
     return _attend(q, k, v, mask, softcap)
+
+
+def full_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                   softcap: float | None = None) -> torch.Tensor:
+    """The reference's ``multi_head_attention(causal=False)``: every query
+    of q [B, Sq, Hq, hd] sees every key of k/v [B, Skv, Hkv, hd] (the
+    encoder's self-attention, cross-attention), one [Sq, Skv] score
+    block per head as in ``causal_attention``."""
+    return _attend(q, k, v, None, softcap)
 
 
 def local_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -153,24 +167,33 @@ def update_kv_cache(k_cache: torch.Tensor, v_cache: torch.Tensor,
 def attention_block(p: Params, x: torch.Tensor, *, n_heads: int,
                     n_kv_heads: int, head_dim: int,
                     rope_fraction: float = 1.0, rope_theta: float = 10000.0,
-                    window: int | None = None, softcap: float | None = None,
+                    causal: bool = True, window: int | None = None,
+                    softcap: float | None = None,
                     cache: Params | None = None, pos=0,
+                    xkv: torch.Tensor | None = None, use_rope: bool = True,
                     tap: list | None = None, backend=None, page_table=None):
-    """Projections + RoPE + attention; returns (out, new_cache)."""
+    """Projections + RoPE + attention; returns (out, new_cache).
+
+    ``xkv`` [B, Skv, d] (cross-attention, full sequence only): K and V
+    are projected from it, every query sees every key, and no RoPE is
+    applied (the encoder's output carries no positions).  ``causal``
+    False (the encoder) attends without the causal mask."""
     B, S, _ = x.shape
+    src = x if xkv is None else xkv
     q = dense(p["wq"], x, tap=tap, backend=backend).reshape(
         B, S, n_heads, head_dim)
-    k = dense(p["wk"], x, tap=tap, backend=backend).reshape(
-        B, S, n_kv_heads, head_dim)
-    v = dense(p["wv"], x, tap=tap, backend=backend).reshape(
-        B, S, n_kv_heads, head_dim)
-    if cache is not None:  # per-slot positions: [B, S] (or [1, S])
-        qpos = (torch.as_tensor(pos, device=x.device).to(torch.int32)
-                .reshape(-1, 1) + torch.arange(S, device=x.device))
-    else:
-        qpos = pos + torch.arange(S, device=x.device)
-    q = apply_rope(q, qpos, fraction=rope_fraction, theta=rope_theta)
-    k = apply_rope(k, qpos, fraction=rope_fraction, theta=rope_theta)
+    k = dense(p["wk"], src, tap=tap, backend=backend).reshape(
+        B, src.shape[1], n_kv_heads, head_dim)
+    v = dense(p["wv"], src, tap=tap, backend=backend).reshape(
+        B, src.shape[1], n_kv_heads, head_dim)
+    if use_rope and xkv is None:
+        if cache is not None:  # per-slot positions: [B, S] (or [1, S])
+            qpos = (torch.as_tensor(pos, device=x.device).to(torch.int32)
+                    .reshape(-1, 1) + torch.arange(S, device=x.device))
+        else:
+            qpos = pos + torch.arange(S, device=x.device)
+        q = apply_rope(q, qpos, fraction=rope_fraction, theta=rope_theta)
+        k = apply_rope(k, qpos, fraction=rope_fraction, theta=rope_theta)
 
     if cache is not None and "k_pages" in cache:
         if window is not None or softcap is not None:
@@ -196,11 +219,14 @@ def attention_block(p: Params, x: torch.Tensor, *, n_heads: int,
         out = decode_attention(q, kc, vc, pos, window=window, ring=ring,
                                softcap=softcap)
         new_cache = {"k": kc, "v": vc}
-    elif window is not None:
-        out = local_attention(q, k, v, window=window, softcap=softcap)
-        new_cache = {"k": k, "v": v}
     else:
-        out = causal_attention(q, k, v, q_offset=int(pos), softcap=softcap)
+        if xkv is None and window is not None:
+            out = local_attention(q, k, v, window=window, softcap=softcap)
+        elif xkv is not None or not causal:
+            out = full_attention(q, k, v, softcap=softcap)
+        else:
+            out = causal_attention(q, k, v, q_offset=int(pos),
+                                   softcap=softcap)
         new_cache = {"k": k, "v": v}
     out = dense(p["wo"], out.reshape(B, S, n_heads * head_dim), tap=tap,
                 backend=backend)

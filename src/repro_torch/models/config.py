@@ -2,15 +2,18 @@
 reads).
 
 The JAX dataclass's field names and defaults, for the fields the served
-and trained decoders read (a ``block_pattern`` of attention, sliding-window
+and trained models read (a ``block_pattern`` of attention, sliding-window
 ``local`` attention, RWKV-6 and RG-LRU layers, a score ``softcap``,
 RMSNorm or LayerNorm, a SwiGLU, GELU, MoE or RWKV
-channel mix, partial RoPE, a tied or untied head; ``remat`` /
-``remat_policy`` and ``z_loss`` for training).  ``n_layers`` is
-``n_units`` repeats of the pattern plus ``n_rem`` remainder layers (the
-pattern's first ``n_rem`` kinds).  The JAX package's ``scan_layers`` has
-no counterpart: the port always holds units as ``{"u0": ..., "u1":
-...}`` and loops over them.
+channel mix, partial RoPE, a tied or untied head; an encoder stack of
+``n_enc_layers`` with cross-attention in the decoder when ``encdec``; a
+modality stub ``frontend``: ``"audio"`` frames feed the encoder,
+``"vision"`` patches are projected and prepended to the tokens;
+``remat`` / ``remat_policy`` and ``z_loss`` for training).  ``n_layers``
+is ``n_units`` repeats of the pattern plus ``n_rem`` remainder layers
+(the pattern's first ``n_rem`` kinds).  The JAX package's
+``scan_layers`` has no counterpart: the port always holds units as
+``{"u0": ..., "u1": ...}`` and loops over them.
 """
 from __future__ import annotations
 
@@ -23,6 +26,7 @@ from repro_torch.core import QuantConfig
 BLOCK_KINDS = ("attn", "local", "rwkv", "rglru")
 WKV_IMPLS = ("scan", "chunked")
 REMAT_POLICIES = ("none", "dots")
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
@@ -55,6 +59,12 @@ class ModelConfig:
     wkv_chunk: int = 32               # chunk length for the chunked WKV
     # RG-LRU
     d_rnn: int | None = None
+    # encoder-decoder (seamless)
+    encdec: bool = False
+    n_enc_layers: int = 0
+    # modality frontend stub: precomputed embeddings are model inputs
+    frontend: str | None = None       # audio | vision
+    n_frontend_tokens: int = 0
     tie_embeddings: bool = False
     dtype: str = "bfloat16"
     quant: QuantConfig = dataclasses.field(default_factory=QuantConfig)
@@ -123,14 +133,15 @@ class ModelConfig:
 
     def check_ported(self):
         """Raise for what this slice of the port does not serve yet."""
-        if (self.family not in ("dense", "moe", "ssm", "hybrid")
+        if (self.family not in FAMILIES
                 or not set(self.block_pattern) <= set(BLOCK_KINDS)
                 or self.mlp not in ("swiglu", "gelu", "moe", "rwkv_cm")
-                or self.norm not in ("rmsnorm", "layernorm")):
+                or self.norm not in ("rmsnorm", "layernorm")
+                or self.frontend not in (None, "audio", "vision")):
             raise NotImplementedError(
-                f"{self.name}: the port serves decoder-only stacks of "
-                "attention, local attention, RWKV-6 and RG-LRU layers "
-                "(RMSNorm or LayerNorm; "
-                "SwiGLU, GELU, MoE or RWKV channel mix) of the dense, moe, "
-                "ssm and hybrid families only so far")
+                f"{self.name}: the port runs stacks of attention, local "
+                "attention, RWKV-6 and RG-LRU layers (RMSNorm or "
+                "LayerNorm; SwiGLU, GELU, MoE or RWKV channel mix; an "
+                "audio or vision frontend stub) of the families "
+                f"{FAMILIES} only")
         return self

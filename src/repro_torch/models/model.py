@@ -1,14 +1,22 @@
-"""Decoder-only LM assembly (port of ``repro/models/model.py``: attention,
+"""LM assembly (port of ``repro/models/model.py``: attention,
 sliding-window ``local`` attention, RWKV-6 and RG-LRU layers with a
-SwiGLU, GELU, MoE or RWKV channel mix).
+SwiGLU, GELU, MoE or RWKV channel mix; decoder-only, or an
+encoder-decoder with cross-attention; modality stubs).
 
 Params are nested dicts: ``{"embed": {"table"}, "units": {"u0": {"0":
 layer}, ...}, "rem": {"0": layer, ...}, "final_norm": {"scale"}, "head":
 {"w"}}``; LayerNorms add a ``bias``, and a tied head has no ``head``
 entry: the logits GEMM runs over the embedding table, quantized through
-``embed.qp_head`` once ``calibrate_model`` has made one.  ``n_units``
-repeats of ``cfg.block_pattern`` are followed by ``n_rem`` remainder
-layers (the pattern's first kinds, applied after the units, named
+``embed.qp_head`` once ``calibrate_model`` has made one.  An
+encoder-decoder (``cfg.encdec``) adds ``"encoder": {"units": {"u<i>":
+{"<j>": layer}}, "final_norm"}`` (``n_enc_layers`` layers named
+``encoder.unit.<j>``, no cross-attention) and gives every decoder layer
+``lnx`` and ``xattn``, a cross-attention over the encoder's output.  A
+vision stub (``cfg.frontend == "vision"``) adds ``frontend_proj``, a
+float linear that projects patch embeddings to be prepended to the
+tokens; an audio stub's frame embeddings feed the encoder as they are.
+``n_units`` repeats of ``cfg.block_pattern`` are followed by ``n_rem``
+remainder layers (the pattern's first kinds, applied after the units, named
 ``rem.<i>``; only present when ``n_layers`` is not a multiple of the
 pattern).  The JAX package stacks units along a leading axis for
 ``lax.scan`` when ``cfg.scan_layers`` is set; the port always keeps one
@@ -19,10 +27,13 @@ the same.
 
 Entry points: ``init_lm``, ``forward`` (full sequence; calibration and
 training, each unit under activation checkpointing when ``cfg.remat``),
-``lm_loss``, ``init_decode_state`` / ``decode_step`` (the dense
-``ServingEngine``'s float KV caches, a ring buffer for ``local``
-layers), ``forward_paged_chunk`` / ``decode_step_paged`` (serving over
-the paged INT8 KV cache; recurrent layers carry per-slot states) and
+``encode`` (the encoder over frame embeddings), ``lm_loss``,
+``init_decode_state`` / ``decode_step`` (the dense ``ServingEngine``'s
+float KV caches, a ring buffer for ``local`` layers; an encoder-decoder
+passes ``enc_out`` and recomputes the cross-attention's K/V from it at
+every step, as the reference does), ``forward_paged_chunk`` /
+``decode_step_paged`` (serving over the paged INT8 KV cache; recurrent
+layers carry per-slot states) and
 ``decode_horizon`` / ``decode_horizon_paged`` (H decode steps, greedy or
 sampled by ``sample_tokens``, with per-slot EOS / budget masking, a
 Python loop in place of ``lax.scan``).  ``tree_map``
@@ -67,7 +78,9 @@ def _init_ffn(gen, cfg: ModelConfig, *, device, name: str) -> Params:
 
 
 def init_layer(gen, cfg: ModelConfig, kind: str, *, device,
-               name: str = "unit.0") -> Params:
+               cross: bool = False, name: str = "unit.0") -> Params:
+    """One layer's params; ``cross`` adds the cross-attention (``lnx``,
+    ``xattn``) of an encoder-decoder's decoder."""
     dt, quant = cfg.torch_dtype, cfg.policy
     kw = dict(device=device, quant=quant, name=f"{name}.mix")
     p = {"ln1": init_norm(cfg.d_model, dt, cfg.norm, device=device),
@@ -83,7 +96,20 @@ def init_layer(gen, cfg: ModelConfig, kind: str, *, device,
     else:
         raise NotImplementedError(f"layer kind {kind!r} is not ported yet")
     p["ffn"] = _init_ffn(gen, cfg, device=device, name=f"{name}.ffn")
+    if cross:
+        p["lnx"] = init_norm(cfg.d_model, dt, cfg.norm, device=device)
+        p["xattn"] = init_attention(gen, cfg.d_model, cfg.n_heads,
+                                    cfg.n_kv_heads, cfg.hd, dt, device=device,
+                                    quant=quant, name=f"{name}.xattn")
     return p
+
+
+def _init_units(gen, cfg: ModelConfig, n: int, *, device, cross: bool,
+                name: str) -> Params:
+    return {f"u{i}": {str(j): init_layer(gen, cfg, kind, device=device,
+                                         cross=cross, name=f"{name}.{j}")
+                      for j, kind in enumerate(cfg.block_pattern)}
+            for i in range(n)}
 
 
 def init_lm(cfg: ModelConfig, *, seed: int = 0, device=None) -> Params:
@@ -91,27 +117,38 @@ def init_lm(cfg: ModelConfig, *, seed: int = 0, device=None) -> Params:
     ``seed`` (fan-in normal weights, unit norms; the global RNG is not
     touched), with ``QuantState`` leaves where ``cfg.policy`` quantizes a
     linear.  A tied head gets no ``head``: its quantizer state comes
-    from ``calibrate_model``, as in the JAX package."""
+    from ``calibrate_model``, as in the JAX package.  The float
+    ``head`` and ``frontend_proj`` are never quantized."""
     cfg.validate().check_ported()
     device = resolve_device(device)
     gen = torch.Generator(device=device).manual_seed(seed)
     dt = cfg.torch_dtype
+    cross = cfg.encdec
     p = {
         "embed": init_embedding(gen, cfg.vocab, cfg.d_model, dt,
                                 device=device),
-        "units": {f"u{i}": {str(j): init_layer(gen, cfg, kind, device=device,
-                                               name=f"unit.{j}")
-                            for j, kind in enumerate(cfg.block_pattern)}
-                  for i in range(cfg.n_units)},
+        "units": _init_units(gen, cfg, cfg.n_units, device=device,
+                             cross=cross, name="unit"),
     }
     if cfg.n_rem:
         p["rem"] = {str(i): init_layer(gen, cfg, cfg.block_pattern[i],
-                                       device=device, name=f"rem.{i}")
+                                       device=device, cross=cross,
+                                       name=f"rem.{i}")
                     for i in range(cfg.n_rem)}
     p["final_norm"] = init_norm(cfg.d_model, dt, cfg.norm, device=device)
     if not cfg.tie_embeddings:
         p["head"] = init_linear(gen, (cfg.d_model, cfg.vocab), dt,
                                 device=device)
+    if cfg.encdec:
+        p["encoder"] = {
+            "units": _init_units(
+                gen, cfg, cfg.n_enc_layers // len(cfg.block_pattern),
+                device=device, cross=False, name="encoder.unit"),
+            "final_norm": init_norm(cfg.d_model, dt, cfg.norm,
+                                    device=device)}
+    if cfg.frontend == "vision":
+        p["frontend_proj"] = init_linear(gen, (cfg.d_model, cfg.d_model), dt,
+                                         device=device)
     return p
 
 
@@ -121,9 +158,12 @@ def init_lm(cfg: ModelConfig, *, seed: int = 0, device=None) -> Params:
 
 def apply_layer(p: Params, x: torch.Tensor, *, cfg: ModelConfig,
                 kind: str, state: Params | None = None, pos=0,
+                enc_out: torch.Tensor | None = None, causal: bool = True,
                 tap: list | None = None, backend=None, page_table=None):
-    """One pre-norm block of ``kind`` (time mix, then channel mix);
-    returns (x, new_state).  ``state`` is None for a full sequence
+    """One pre-norm block of ``kind`` (time mix, then, in a layer with
+    ``xattn`` given ``enc_out``, the cross-attention, then channel mix);
+    returns (x, new_state).  ``causal`` False: the encoder's attention.
+    ``state`` is None for a full sequence
     (calibration, training: the new state is then the attention K/V or
     the recurrent state), else the layer's serving state: paged with
     ``page_table``, else the dense engine's (one token per slot).  A
@@ -139,6 +179,7 @@ def apply_layer(p: Params, x: torch.Tensor, *, cfg: ModelConfig,
             p["mix"], h, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
             head_dim=cfg.hd, rope_fraction=cfg.rope_fraction,
             rope_theta=cfg.rope_theta,
+            causal=causal,
             window=cfg.local_window if kind == "local" else None,
             softcap=cfg.softcap, cache=state, pos=pos, tap=tap,
             backend=backend, page_table=page_table)
@@ -157,6 +198,12 @@ def apply_layer(p: Params, x: torch.Tensor, *, cfg: ModelConfig,
     else:
         raise NotImplementedError(f"layer kind {kind!r} is not ported yet")
     x = x + out
+    if "xattn" in p and enc_out is not None:
+        outx, _ = attention_block(
+            p["xattn"], apply_norm(p["lnx"], x, cfg.norm),
+            n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads, head_dim=cfg.hd,
+            xkv=enc_out, use_rope=False, tap=tap, backend=backend)
+        x = x + outx
     h2 = apply_norm(p["ln2"], x, cfg.norm)
     if cfg.mlp == "moe":
         per_slot = state is not None and page_table is None
@@ -179,19 +226,21 @@ def apply_layer(p: Params, x: torch.Tensor, *, cfg: ModelConfig,
 
 
 def apply_unit(p: Params, x, *, cfg: ModelConfig, state=None, pos=0,
-               tap: list | None = None, backend=None, page_table=None):
+               enc_out=None, causal: bool = True, tap: list | None = None,
+               backend=None, page_table=None):
     new_state = {}
     for j, kind in enumerate(cfg.block_pattern):
         x, s = apply_layer(p[str(j)], x, cfg=cfg, kind=kind,
                            state=state[str(j)] if state is not None else None,
-                           pos=pos, tap=tap, backend=backend,
-                           page_table=page_table)
+                           pos=pos, enc_out=enc_out, causal=causal, tap=tap,
+                           backend=backend, page_table=page_table)
         new_state[str(j)] = s
     return x, new_state
 
 
 def apply_rem(p: Params, x, *, cfg: ModelConfig, state=None, pos=0,
-              tap: list | None = None, backend=None, page_table=None):
+              enc_out=None, tap: list | None = None, backend=None,
+              page_table=None):
     """The ``n_rem`` remainder layers after the units; their states sit
     at ``state["rem<i>"]``.  Returns (x, {"rem<i>": new state})."""
     new_state = {}
@@ -199,13 +248,22 @@ def apply_rem(p: Params, x, *, cfg: ModelConfig, state=None, pos=0,
         x, new_state[f"rem{i}"] = apply_layer(
             p["rem"][str(i)], x, cfg=cfg, kind=cfg.block_pattern[i],
             state=state[f"rem{i}"] if state is not None else None, pos=pos,
-            tap=tap, backend=backend, page_table=page_table)
+            enc_out=enc_out, tap=tap, backend=backend, page_table=page_table)
     return x, new_state
 
 
-def embed_inputs(p: Params, cfg: ModelConfig,
-                 tokens: torch.Tensor) -> torch.Tensor:
-    return embed(p["embed"], tokens)
+def embed_inputs(p: Params, cfg: ModelConfig, tokens: torch.Tensor | None,
+                 embeds: torch.Tensor | None = None) -> torch.Tensor:
+    """Token embedding, with a vision stub's patch embeddings ``embeds``
+    [B, n_img, d] projected by ``frontend_proj`` (in the model dtype) and
+    prepended: [B, n_img + S, d].  An audio stub's frames go to
+    ``encode``, not here."""
+    parts = []
+    if embeds is not None and cfg.frontend == "vision":
+        parts.append(dense(p["frontend_proj"], embeds.to(cfg.torch_dtype)))
+    if tokens is not None:
+        parts.append(embed(p["embed"], tokens))
+    return torch.cat(parts, dim=1) if len(parts) > 1 else parts[0]
 
 
 def logits_from_hidden(p: Params, cfg: ModelConfig, x: torch.Tensor, *,
@@ -251,21 +309,53 @@ def _remat(fn, cfg: ModelConfig):
     return lambda *args: checkpoint(fn, *args, use_reentrant=False, **kw)
 
 
-def forward(p: Params, cfg: ModelConfig, tokens: torch.Tensor, *, pos=0,
-            tap: list | None = None, backend=None) -> torch.Tensor:
-    """Full-sequence causal forward; returns logits [B, S, V].
-
-    With ``cfg.remat`` and autograd recording, each unit runs under
-    activation checkpointing (``_remat``); the values are the same
-    either way.  A capture ``tap`` runs every unit once, unwrapped."""
-    x = embed_inputs(p, cfg, tokens)
+def _run_units(units: Params, x: torch.Tensor, *, cfg: ModelConfig, pos,
+               enc_out, causal: bool, tap: list | None, backend):
+    """The units in order.  With ``cfg.remat`` and autograd recording,
+    each runs under activation checkpointing (``_remat``); the values
+    are the same either way.  A capture ``tap`` runs each once,
+    unwrapped."""
     remat = cfg.remat and tap is None and torch.is_grad_enabled()
-    for i in range(len(p["units"])):
-        def unit(h, _p=p["units"][f"u{i}"]):
-            return apply_unit(_p, h, cfg=cfg, pos=pos, tap=tap,
-                              backend=backend)[0]
+    for i in range(len(units)):
+        def unit(h, _p=units[f"u{i}"]):
+            return apply_unit(_p, h, cfg=cfg, pos=pos, enc_out=enc_out,
+                              causal=causal, tap=tap, backend=backend)[0]
         x = _remat(unit, cfg)(x) if remat else unit(x)
-    x, _ = apply_rem(p, x, cfg=cfg, pos=pos, tap=tap, backend=backend)
+    return x
+
+
+def encode(p: Params, cfg: ModelConfig, enc_embeds: torch.Tensor, *,
+           backend=None) -> torch.Tensor:
+    """The encoder over frame embeddings [B, S_enc, d] (the audio stub):
+    its units without the causal mask (RoPE from position 0), then its
+    final norm; returns ``enc_out`` [B, S_enc, d] in the model dtype."""
+    x = _run_units(p["encoder"]["units"], enc_embeds.to(cfg.torch_dtype),
+                   cfg=cfg, pos=0, enc_out=None, causal=False, tap=None,
+                   backend=backend)
+    return apply_norm(p["encoder"]["final_norm"], x, cfg.norm)
+
+
+def forward(p: Params, cfg: ModelConfig, tokens: torch.Tensor | None, *,
+            embeds: torch.Tensor | None = None,
+            enc_embeds: torch.Tensor | None = None, pos=0,
+            tap: list | None = None, backend=None) -> torch.Tensor:
+    """Full-sequence causal forward; returns logits [B, S_out, V]:
+    S_out = n_img + S with a vision stub's ``embeds`` [B, n_img, d]
+    (prepended), S otherwise.  An encoder-decoder needs ``enc_embeds``
+    [B, S_enc, d]: ``encode`` runs first (the ``tap`` does not reach
+    it; ``calibrate_model`` captures the encoder apart), and every
+    decoder layer cross-attends to its output."""
+    enc_out = None
+    if cfg.encdec:
+        if enc_embeds is None:
+            raise ValueError(f"{cfg.name}: an encoder-decoder forward needs "
+                             "enc_embeds")
+        enc_out = encode(p, cfg, enc_embeds, backend=backend)
+    x = embed_inputs(p, cfg, tokens, embeds)
+    x = _run_units(p["units"], x, cfg=cfg, pos=pos, enc_out=enc_out,
+                   causal=True, tap=tap, backend=backend)
+    x, _ = apply_rem(p, x, cfg=cfg, pos=pos, enc_out=enc_out, tap=tap,
+                     backend=backend)
     return logits_from_hidden(p, cfg, x, backend=backend)
 
 
@@ -331,35 +421,48 @@ def init_decode_state(cfg: ModelConfig, batch: int, cache_len: int, *,
 
 
 def _serve_step(p: Params, cfg: ModelConfig, state: Params,
-                tokens: torch.Tensor, pos, page_table, backend):
+                tokens: torch.Tensor, pos, page_table, backend,
+                enc_out=None):
     """tokens [B, S] against a serving state (dense, or paged with
-    ``page_table``); returns (logits [B, 1, V] of the last row,
-    new_state).  A model with recurrent layers runs its float GEMMs,
-    norms and dense decode attention in fixed blocks
+    ``page_table``; ``enc_out`` for an encoder-decoder's
+    cross-attention); returns (logits [B, 1, V] of the last row,
+    new_state).  A model with recurrent layers, and an encoder-decoder,
+    runs its float GEMMs and norms in fixed blocks
     (``common.row_blocks``), so a token's values do not depend on the
-    chunk or the batch it rides in."""
-    with row_blocks(cfg.recurrent):
+    chunk or the batch it rides in.  For an encoder-decoder on an H100
+    both round by the row count otherwise (``scripts/
+    encdec_batch_rows.py``): the float head [M, 1024] @ [1024, 256206]
+    at M = 1, 2, 3 against M = 8, and a decode step's LayerNorm on some
+    rows; its attention and its encoder do not."""
+    with row_blocks(cfg.recurrent or cfg.encdec):
         x = embed_inputs(p, cfg, tokens)
         new_units = {}
         for i in range(len(p["units"])):
             key = f"u{i}"
             x, new_units[key] = apply_unit(
                 p["units"][key], x, cfg=cfg, state=state["units"][key],
-                pos=pos, backend=backend, page_table=page_table)
+                pos=pos, enc_out=enc_out, backend=backend,
+                page_table=page_table)
         x, new_rem = apply_rem(p, x, cfg=cfg, state=state, pos=pos,
-                               backend=backend, page_table=page_table)
+                               enc_out=enc_out, backend=backend,
+                               page_table=page_table)
         logits = logits_from_hidden(p, cfg, x[:, -1:], backend=backend)
     return logits, {**state, "units": new_units, **new_rem}
 
 
 def decode_step(p: Params, cfg: ModelConfig, state: Params,
-                token: torch.Tensor, pos, *, backend=None):
+                token: torch.Tensor, pos, *,
+                enc_out: torch.Tensor | None = None, backend=None):
     """One decode step against the dense state: token [B, 1] at ``pos``
     (a scalar, or a per-slot [B] vector: the reference ``vmap``s a
     batch-1 step over the slots, the port batches them; the fixed blocks
     make the per-token prefill at B = 1 and the decode at B = slots
-    round alike).  Returns (logits [B, 1, V], new_state)."""
-    return _serve_step(p, cfg, state, token, pos, None, backend)
+    round alike).  An encoder-decoder passes ``enc_out`` [B, S_enc, d]
+    (``encode``'s): each layer's cross-attention projects its K/V from
+    it again at every step, as the reference does.  Returns (logits
+    [B, 1, V], new_state)."""
+    return _serve_step(p, cfg, state, token, pos, None, backend,
+                       enc_out=enc_out)
 
 
 # ---------------------------------------------------------------------------

@@ -10,7 +10,10 @@ data leaf: per-expert codes, and the exponents of the one shared state
 repeated per expert (as the JAX package's ``vmap`` over experts does).
 A tied head's ``{"table", "qp_head": QuantState}`` keeps its float table
 (the input lookup) beside a deployed ``qp_head`` with the codes of
-``tied_head_weight(table)``.
+``tied_head_weight(table)``.  The walk reaches every subtree: an
+encoder's units (``encoder.unit.<j>``) and the decoder's cross-attention
+(``xattn``) export like any linear, while a float linear without a
+state (the head, a vision stub's ``frontend_proj``) stays as it is.
 
   * weight codes at the per-channel scale ``2^floor(log2 aw)``;
   * activation exponent ``floor(log2 ax)``;

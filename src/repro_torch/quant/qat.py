@@ -1,5 +1,5 @@
 """QAT integration: capture-based calibration, distillation, named
-policies (port of ``repro/quant/qat.py``, dense branch).
+policies (port of ``repro/quant/qat.py``).
 
 ``distill_loss`` is the QAT-with-teacher objective (KL(teacher ||
 student) on logits mixed with cross entropy), ``make_distill_loss_fn``
@@ -17,8 +17,12 @@ pass's scales, so a linear downstream of another quantized linear in the
 same unit (the MLP's ``wo``) sees calibrated inputs.  Each unit is then
 re-applied with its calibrated scales before the next unit is captured,
 and the remainder layers (``rem.<i>``) follow the units one at a time.
-A tied head gets its ``embed.qp_head`` last (policy name ``"head"``),
-calibrated on the final-norm hidden states over
+An encoder-decoder's encoder goes first, unit by unit the same way over
+``batch["enc_embeds"]``; its final-norm output is the ``enc_out`` that
+the decoder's cross-attentions read while they are captured.  A vision
+stub's ``batch["embeds"]`` are projected and prepended to the tokens
+(``embed_inputs``).  A tied head gets its ``embed.qp_head`` last (policy
+name ``"head"``), calibrated on the final-norm hidden states over
 ``tied_head_weight(table)``.
 """
 from __future__ import annotations
@@ -63,41 +67,70 @@ def _calibrate_block(apply_fn, block_params, sample_tokens: int,
     return new_params
 
 
+def _calibrate_units(units, x, cfg, sample_tokens: int, *, enc_out,
+                     causal: bool):
+    """Each unit of ``units`` captured and calibrated on ``x``, then
+    re-applied with its calibrated scales to give the next unit's input;
+    returns (new units, output)."""
+    from repro_torch.models.model import apply_unit   # lazy: models import us
+    new_units = {}
+    for i in range(len(units)):
+        key = f"u{i}"
+        new_units[key] = _calibrate_block(
+            lambda pp, tap, _x=x: apply_unit(pp, _x, cfg=cfg, pos=0,
+                                             enc_out=enc_out, causal=causal,
+                                             tap=tap),
+            units[key], sample_tokens)
+        x, _ = apply_unit(new_units[key], x, cfg=cfg, pos=0, enc_out=enc_out,
+                          causal=causal)
+    return new_units, x
+
+
 @torch.no_grad()
 def calibrate_model(params, cfg, batch: dict,
                     sample_tokens: int = 512):
     """Refine every quantized linear's (ax, ap) from one forward pass.
 
-    Pure: returns a new params tree.  ``batch["tokens"]`` [B, S] int
-    (numpy or a tensor) on any device; it moves to the params' device.
+    Pure: returns a new params tree.  ``batch["tokens"]`` [B, S] int,
+    ``batch["enc_embeds"]`` [B, S_enc, d] (needed by an encoder-decoder)
+    and ``batch["embeds"]`` [B, n_img, d] (a vision stub's, optional):
+    numpy or tensors on any device; they move to the params' device.
     """
     # lazy: models import quant.policy
     from repro_torch.models.common import apply_norm
-    from repro_torch.models.model import (apply_layer, apply_unit,
-                                          embed_inputs)
+    from repro_torch.models.model import apply_layer, embed_inputs
     device = params["embed"]["table"].device
-    tokens = torch.as_tensor(batch["tokens"], device=device).long()
+
+    def get(key):
+        v = batch.get(key)
+        return None if v is None else torch.as_tensor(v, device=device)
+
     new_params = dict(params)
-    x = embed_inputs(params, cfg, tokens)
-    new_units = {}
-    for i in range(len(params["units"])):
-        key = f"u{i}"
-        new_unit = _calibrate_block(
-            lambda pp, tap, _x=x: apply_unit(pp, _x, cfg=cfg, pos=0,
-                                             tap=tap),
-            params["units"][key], sample_tokens)
-        x, _ = apply_unit(new_unit, x, cfg=cfg, pos=0)
-        new_units[key] = new_unit
-    new_params["units"] = new_units
+    enc_out = None
+    if cfg.encdec:
+        if batch.get("enc_embeds") is None:
+            raise ValueError(f"{cfg.name}: encoder-decoder calibration needs "
+                             "enc_embeds")
+        enc = params["encoder"]
+        new_enc_units, xe = _calibrate_units(
+            enc["units"], get("enc_embeds").to(cfg.torch_dtype), cfg,
+            sample_tokens, enc_out=None, causal=False)
+        new_params["encoder"] = {**enc, "units": new_enc_units}
+        enc_out = apply_norm(enc["final_norm"], xe, cfg.norm)
+    x = embed_inputs(params, cfg, get("tokens").long(), get("embeds"))
+    new_params["units"], x = _calibrate_units(
+        params["units"], x, cfg, sample_tokens, enc_out=enc_out, causal=True)
     if cfg.n_rem:
         new_rem = {}
         for i in range(cfg.n_rem):
             kind = cfg.block_pattern[i]
             new_rem[str(i)] = _calibrate_block(
                 lambda pp, tap, _x=x, _k=kind: apply_layer(
-                    pp, _x, cfg=cfg, kind=_k, pos=0, tap=tap),
+                    pp, _x, cfg=cfg, kind=_k, pos=0, enc_out=enc_out,
+                    tap=tap),
                 params["rem"][str(i)], sample_tokens)
-            x, _ = apply_layer(new_rem[str(i)], x, cfg=cfg, kind=kind, pos=0)
+            x, _ = apply_layer(new_rem[str(i)], x, cfg=cfg, kind=kind, pos=0,
+                               enc_out=enc_out)
         new_params["rem"] = new_rem
     resolved = (resolve_quant(cfg.policy, "head") if cfg.tie_embeddings
                 else None)
@@ -114,8 +147,8 @@ def calibrate_model(params, cfg, batch: dict,
 
 
 def policy_presets() -> dict:
-    """Named heterogeneous per-layer policies (the dense ones of the JAX
-    package's ``policy_presets``)."""
+    """Named heterogeneous per-layer policies (the JAX package's
+    ``policy_presets``)."""
     apsq = QuantConfig.apsq
     return {
         # attention projections tight (small gs), FFN loose (bigger gs)
@@ -127,6 +160,14 @@ def policy_presets() -> dict:
         "ffn_only": QuantPolicy.of(
             ("*.ffn.*", apsq(gs=2, n_p=8)),
             default=QuantConfig.w8a8()),
+        # aggressive everywhere incl. remainder layers, fine K tiling
+        "aggressive": QuantPolicy.of(
+            ("rem.*", apsq(gs=1, n_p=16)),
+            ("*", apsq(gs=2, n_p=16))),
+        # encoder quantized harder than decoder (encdec archs)
+        "enc_heavy": QuantPolicy.of(
+            ("encoder.*", apsq(gs=1, n_p=8)),
+            ("*", apsq(gs=4, n_p=4))),
     }
 
 
@@ -146,13 +187,17 @@ def distill_loss(student_logits: torch.Tensor, teacher_logits: torch.Tensor,
 def make_distill_loss_fn(cfg_student, cfg_teacher, teacher_params,
                          alpha: float = 0.5, temperature: float = 2.0):
     """(student_params, batch) -> loss against a frozen full-precision
-    teacher's logits (computed without autograd)."""
+    teacher's logits (computed without autograd); a batch's ``embeds``
+    and ``enc_embeds`` reach both forwards."""
     from repro_torch.models.model import forward
 
     def loss_fn(params, batch):
-        s_logits = forward(params, cfg_student, batch["tokens"])
+        kw = dict(embeds=batch.get("embeds"),
+                  enc_embeds=batch.get("enc_embeds"))
+        s_logits = forward(params, cfg_student, batch["tokens"], **kw)
         with torch.no_grad():
-            t_logits = forward(teacher_params, cfg_teacher, batch["tokens"])
+            t_logits = forward(teacher_params, cfg_teacher, batch["tokens"],
+                               **kw)
         return distill_loss(s_logits, t_logits, batch["labels"], alpha,
                             temperature)
     return loss_fn

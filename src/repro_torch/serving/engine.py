@@ -82,12 +82,20 @@ class _Engine:
     """What both engines share: the params and the device they lie on
     (the engine runs there), the exec backend, the decode horizon and
     the sampler (one ``torch.Generator`` on the device, seeded by
-    ``seed``)."""
+    ``seed``).  An encoder-decoder is refused: its decoder needs the
+    encoder's output, which no engine takes (the reference's engines
+    accept one and decode without cross-attention); a vision stub's
+    model serves its text, ``frontend_proj`` unused."""
 
     def __init__(self, params, cfg: ModelConfig, *, decode_horizon: int,
                  greedy: bool, temperature: float, seed: int, backend):
         from repro_torch.exec import get_backend
         cfg.check_ported()
+        if cfg.encdec:
+            raise NotImplementedError(
+                f"{cfg.name}: the engines serve decoder-only models; an "
+                "encoder-decoder decodes through models.decode_step("
+                "enc_out=encode(...))")
         self.params = params
         self.cfg = cfg
         self.device = params["embed"]["table"].device

@@ -79,10 +79,18 @@ def _split_micro(batch: dict, n: int) -> list:
 
 
 def make_loss_fn(cfg: ModelConfig):
+    """(params, batch) -> the token-mean LM loss; a batch's ``embeds``
+    (vision) and ``enc_embeds`` (encoder-decoder) reach ``forward``, and
+    where an image prefix makes the logits longer than the labels only
+    the text positions' logits are scored, as in the JAX trainer."""
     def loss_fn(params, batch):
-        logits = forward(params, cfg, batch["tokens"])
-        return lm_loss(logits, batch["labels"], batch.get("mask"),
-                       cfg.z_loss)
+        logits = forward(params, cfg, batch["tokens"],
+                         embeds=batch.get("embeds"),
+                         enc_embeds=batch.get("enc_embeds"))
+        labels = batch["labels"]
+        if logits.shape[1] != labels.shape[1]:   # vlm: text logits only
+            logits = logits[:, -labels.shape[1]:]
+        return lm_loss(logits, labels, batch.get("mask"), cfg.z_loss)
     return loss_fn
 
 

@@ -46,6 +46,12 @@ machine without JAX:
   single-stream, ``cuda`` engine == ``oracle`` engine, float32 engine ==
   ``forward`` greedy), sampling repeatable by seed and across horizons
   in both engines, and the serve launcher on both engines.
+* The encoder-decoder stack and the vision stub: ``apsq_matmul`` at the
+  encoder's M = 2048 (SeamlessM4T-v2-large's widths under
+  ``enc_heavy``) bit-exact; exported ``seamless-smoke`` through
+  ``encode`` and 8 ``decode_step(enc_out=)`` steps and
+  ``internvl2-smoke`` through ``forward(embeds=)`` bit-equal on the
+  ``cuda`` and ``oracle`` backends.
 """
 import numpy as np
 import pytest
@@ -1155,3 +1161,88 @@ def test_serve_launcher_on_card(no_tf32, engine, capsys):
                  "--max-batch", "2", "--cache-len", "64"])
     assert len(done) == 3 and "[serve] 3 requests, 12 tokens" in (
         capsys.readouterr().out)
+
+
+# ---------------------------------------------------------------------------
+# The encoder-decoder stack and the vision stub on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,n,n_p,gs", [(1024, 8192, 8, 1), (8192, 1024, 8, 1),
+                                        (1024, 1024, 4, 4)])
+def test_apsq_kernel_at_encoder_rows(cuda, k, n, n_p, gs):
+    """``apsq_matmul`` at M = 2048 (the encoder's B x S_enc and the
+    cross-attention's K/V rows at SeamlessM4T-v2-large's widths, under
+    ``enc_heavy``: gs=1 n_p=8 in the encoder, gs=4 n_p=4 elsewhere),
+    per-column exponents: bit-exact, bit-identical on repeat."""
+    gen = torch.Generator(device=cuda).manual_seed(k + n)
+    x = torch.randint(-128, 128, (2048, k), generator=gen, device=cuda,
+                      dtype=torch.int8)
+    w = torch.randint(-128, 128, (k, n), generator=gen, device=cuda,
+                      dtype=torch.int8)
+    _apsq_bit_exact_once_and_again(x, w, _serving_exps(x, w, n_p, gs), gs)
+
+
+def _frontend_export(arch, preset, dev, **inputs):
+    """A smoke model with a frontend, calibrated (tokens + ``inputs``) and
+    exported on the CPU, moved to ``dev``; returns (deploy, cfg, tokens,
+    inputs on ``dev``)."""
+    from repro_torch.checkpoint import to_device
+    from repro_torch.configs import get_smoke
+    from repro_torch.models import init_lm
+    from repro_torch.quant import (calibrate_model, export_quantized,
+                                   policy_presets)
+    cfg = get_smoke(arch).with_quant(policy_presets()[preset])
+    rng = np.random.default_rng(4)
+    tok = rng.integers(0, cfg.vocab, (2, 8))
+    batch = {k: rng.standard_normal((2, s, cfg.d_model)).astype(np.float32)
+             for k, s in inputs.items()}
+    deploy, _ = export_quantized(calibrate_model(
+        init_lm(cfg, seed=1, device="cpu"), cfg, {"tokens": tok, **batch}))
+    return (to_device(deploy, dev), cfg, torch.from_numpy(tok).to(dev),
+            {k: torch.from_numpy(v).to(dev) for k, v in batch.items()})
+
+
+@pytest.mark.cuda
+def test_seamless_smoke_cuda_equals_oracle_on_card(no_tf32):
+    """Exported ``seamless-smoke`` (``enc_heavy``) on the card: ``encode``
+    and 8 ``decode_step(enc_out=)`` steps (4 prompt tokens, then greedy)
+    give bit-equal outputs on the ``cuda`` and ``oracle`` backends, and
+    the APSQ kernels launch."""
+    from repro_torch.models import decode_step, encode, init_decode_state
+    deploy, cfg, tok, inp = _frontend_export(
+        "seamless-m4t-large-v2", "enc_heavy", no_tf32, enc_embeds=12)
+    outs = {}
+    for backend in ("cuda", "oracle"):
+        _build.reset_launch_counts()
+        with torch.no_grad():
+            enc = encode(deploy, cfg, inp["enc_embeds"], backend=backend)
+            st = init_decode_state(cfg, 2, 8, device=no_tf32)
+            cur, lgs = tok[:, :1], []
+            for t in range(8):
+                lg, st = decode_step(deploy, cfg, st, cur, t, enc_out=enc,
+                                     backend=backend)
+                lgs.append(lg)
+                cur = (tok[:, t + 1:t + 2] if t < 3
+                       else lg.argmax(-1).to(tok.dtype))
+        outs[backend] = (enc, torch.cat(lgs, 1))
+        if backend == "cuda":
+            assert _build.launch_counts.get("apsq_matmul", 0) > 0
+    assert torch.equal(outs["cuda"][0], outs["oracle"][0])
+    assert torch.equal(outs["cuda"][1], outs["oracle"][1])
+
+
+@pytest.mark.cuda
+def test_internvl2_smoke_forward_with_embeds_cuda_equals_oracle(no_tf32):
+    """Exported ``internvl2-smoke`` (``mix2_ffn4``) on the card:
+    ``forward(embeds=)`` logits [2, 4 + 8, V] bit-equal on the ``cuda``
+    and ``oracle`` backends."""
+    from repro_torch.models import forward
+    deploy, cfg, tok, inp = _frontend_export(
+        "internvl2-26b", "mix2_ffn4", no_tf32, embeds=4)
+    with torch.no_grad():
+        got = forward(deploy, cfg, tok, embeds=inp["embeds"], backend="cuda")
+        want = forward(deploy, cfg, tok, embeds=inp["embeds"],
+                       backend="oracle")
+    assert got.shape == (2, 12, cfg.vocab)
+    assert torch.equal(got, want)

@@ -21,9 +21,11 @@ on the CPU at smoke size: ``starcoder2-smoke`` (LayerNorm, GELU MLP),
   that first appears at step >= 1, decode horizon 4.
 * The port's invariants per family: batched == single-stream, fused
   horizon == stepwise.
-* ``check_ported`` still refuses the families (encoder-decoder,
-  vision-language) the port does not serve; local attention constructs,
-  and the paged path still refuses it, as the reference's does.
+* What the engines still refuse: an encoder-decoder (both engines and
+  the serve launcher; it decodes through ``decode_step(enc_out=)``),
+  local attention on the paged path, as the reference's does; a vision
+  stub's config builds ``frontend_proj`` and serves its text on the
+  paged engine.
 """
 import dataclasses
 import functools
@@ -322,20 +324,35 @@ def test_batched_equals_single_stream_and_horizon_equals_stepwise(family):
 
 
 @pytest.mark.parametrize("change", [
-    dict(block_pattern=("attn", "local")), dict(family="encdec"),
-    dict(family="vlm")], ids=["local", "encdec", "frontend"])
+    dict(block_pattern=("attn", "local")),
+    dict(family="encdec", encdec=True, n_enc_layers=2, frontend="audio"),
+    dict(family="vlm", frontend="vision", n_frontend_tokens=4)],
+    ids=["local", "encdec", "frontend"])
 def test_check_ported_still_refuses(change):
     cfg = get_smoke("starcoder2-15b").scaled(**change)
+    params = init_lm(cfg.check_ported(), seed=0, device="cpu")
     if "block_pattern" in change:   # the dense ServingEngine's, not paged
         from repro_torch.models import init_paged_decode_state
-        params = init_lm(cfg.check_ported(), seed=0, device="cpu")
         with pytest.raises(NotImplementedError):
             init_paged_decode_state(cfg, 1, page_size=4, n_pages=2,
                                     device="cpu")
         with pytest.raises(NotImplementedError):
             PagedServingEngine(params, cfg)
         return
-    with pytest.raises(NotImplementedError):
-        cfg.check_ported()
-    with pytest.raises(NotImplementedError):
-        init_lm(cfg, seed=0, device="cpu")
+    if cfg.encdec:      # no engine takes the encoder's output
+        from repro_torch.launch.serve import main
+        from repro_torch.serving import ServingEngine
+        with pytest.raises(NotImplementedError):
+            PagedServingEngine(params, cfg)
+        with pytest.raises(NotImplementedError):
+            ServingEngine(params, cfg)
+        with pytest.raises(SystemExit, match="enc-dec"):
+            main(["--arch", "seamless-m4t-large-v2", "--smoke", "--device",
+                  "cpu"])
+        return
+    assert sorted(params["frontend_proj"]) == ["w"]     # float, no qp
+    eng = PagedServingEngine(params, cfg, max_batch=1, page_size=4,
+                             n_pages=8)
+    out = eng.run([Request(uid=0, tokens=np.arange(5, dtype=np.int32),
+                           max_new_tokens=3)])
+    assert len(out[0].out) == 3
