@@ -206,8 +206,25 @@ Phases (each exits non-zero on failure):
              ``cuda`` == ``oracle`` bit for bit with the image prefix
              moving the text logits, then the paged engine serves 4 text
              requests, batched == single-stream.
+  search     the per-layer (gs, n_p) policy search and the APSQ energy
+             model (``repro_torch.search``): the search's CLI in-process
+             on the card (``--arch tinyllama-1.1b --budget-smoke
+             --include-presets``, report under chiprun_out/search):
+             energy scored on full TinyLlama-1.1B, the accuracy proxy on
+             tinyllama-smoke, about 20 candidates, the Pareto front and
+             both round trips (calibrate -> export -> GEMM parity oracle
+             vs cuda and greedy decode on a dense engine per backend);
+             its exit code must be 0.  Then full-width TinyLlama-1.1B
+             (22 layers, d=2048, bf16, random weights from seed 0) under
+             uniform W8A8 and under the front's best PSUM-quantized
+             member: ``energy_report``, ``accuracy_proxy`` on a 2 x 32
+             batch, ``roundtrip_report`` (GEMM parity bit-equal at M = 4,
+             ``oracle`` == ``cuda`` greedy tokens) and
+             ``backend_parity_report`` (M = 8, bit-equal).  The whole
+             phase is the path's zeroed run: kernels 1, 2 and 4 must
+             launch.  Records seconds and peak memory.
 
-The main path runs in sixteen configurations, each its own path:
+The main path runs in seventeen configurations, each its own path:
 ``serve`` (mix2_ffn4: every layer APSQ), ``w8a8`` (ffn_only: W8A8
 attention projections), ``moe_serve`` (OLMoE, mix2_ffn4), ``moe_w8a8``
 (OLMoE, W8A8), ``load`` (the restored JAX export), ``sc2_serve``,
@@ -215,7 +232,8 @@ attention projections), ``moe_serve`` (OLMoE, mix2_ffn4), ``moe_w8a8``
 serve tails; the training step itself is plain PyTorch and reaches no
 kernel), ``qwen3_2l``, ``rwkv_serve``, ``rg_serve``,
 ``seamless_serve`` (its batched run; its single-stream runs are
-``seamless_serve/single``) and ``vlm_2l``.  Launch
+``seamless_serve/single``), ``vlm_2l`` and ``search`` (the search's
+CLI and the full-width round trips).  Launch
 counts are zeroed just before each and read just after; every kernel of
 each path must have launched.  The line before the
 last holds the per-kernel record: ``launches`` is the count of the path
@@ -243,7 +261,7 @@ F32_OPS_PER_S = 67e12          # H100 SXM float32 outside the tensor cores
 PHASES = ("build", "kernels", "reference", "serve", "w8a8", "moe_reference",
           "moe_serve", "moe_w8a8", "load", "sc2_serve", "dense_2l", "train",
           "moe_train", "qwen3_2l", "rwkv_serve", "rg_serve", "seamless_serve",
-          "vlm_2l")
+          "vlm_2l", "search")
 FIXTURE = os.path.join(ROOT, "tests", "fixtures",
                        "jax_export_starcoder2_smoke")
 NO_BATCHED_INT8_MM = ("none: PyTorch has no single call for a batched "
@@ -298,6 +316,7 @@ PATH_KERNELS = {
     "seamless_serve": ("apsq_matmul",),
     "seamless_serve/single": ("apsq_matmul", "apsq_matmul_m1"),
     "vlm_2l": ("apsq_matmul", "apsq_matmul_m1", "int8_kv_attention"),
+    "search": ("apsq_matmul", "apsq_matmul_m1", "baseline_matmul"),
 }
 
 
@@ -2621,6 +2640,116 @@ def phase_vlm_2l(torch, np, _build, cfg, dev):
     return info, problems
 
 
+SEARCH_OUT = os.path.join(ROOT, "chiprun_out", "search")
+
+
+def report_candidate(point: dict):
+    """The search candidate behind one point of the CLI's JSON report: a
+    preset by its label, a generated candidate from its per-class
+    choice labels (``w8a8``, ``apsq(gs=G,np=N)``, ``psq(np=N)``)."""
+    import re
+    from repro_torch.search import Candidate, FixedCandidate, policy_sweep
+    if point["origin"] == "preset":
+        return FixedCandidate(name=point["name"], fixed_policy=dict(
+            policy_sweep("all"))[point["name"]])
+
+    def choice(label):
+        nums = tuple(int(v) for v in re.findall(r"=(\d+)", label))
+        return {"w8a8": ("w8a8",), "apsq": ("apsq",) + nums,
+                "psq": ("psq", 0) + nums}[label.split("(")[0]]
+
+    return Candidate(name=point["name"], origin=point["origin"],
+                     assignment=tuple((pat, choice(lbl)) for pat, lbl
+                                      in point["assignment"].items()))
+
+
+def phase_search(torch, np, _build, cfg, dev):
+    """The search's CLI on the card, then full-width TinyLlama-1.1B under
+    uniform W8A8 and the front's best PSUM-quantized member: energy,
+    accuracy proxy, round trip and backend parity; one zeroed run."""
+    import contextlib
+    import io
+    from repro_torch.core import QuantConfig
+    from repro_torch.quant import QuantPolicy
+    from repro_torch.search import (accuracy_proxy, backend_parity_report,
+                                    energy_report, layer_classes,
+                                    make_eval_batch, model_inventory,
+                                    oracle_logits, roundtrip_report)
+    from repro_torch.search.cli import main as search_cli
+    from repro_torch.search.driver import has_psum
+    info, problems = {"config": cfg.name, "layers": cfg.n_layers}, []
+    torch.cuda.empty_cache()
+    os.makedirs(SEARCH_OUT, exist_ok=True)
+    _build.reset_launch_counts()        # the path's zeroed run
+    t_all = t0 = time.perf_counter()
+    log = io.StringIO()
+    with contextlib.redirect_stdout(log):
+        rc = search_cli(["--arch", "tinyllama-1.1b", "--budget-smoke",
+                         "--include-presets", "--out", SEARCH_OUT])
+    info["cli_s"] = time.perf_counter() - t0
+    with open(os.path.join(SEARCH_OUT, "cli.log"), "w") as f:
+        f.write(log.getvalue())
+    with open(os.path.join(SEARCH_OUT, "tinyllama-1.1b__pareto.json")) as f:
+        rep = json.load(f)
+    info["cli_rc"] = rc
+    info["n_evaluated"] = rep["n_evaluated"]
+    info["front"] = [{k: p[k] for k in ("name", "origin", "heterogeneous",
+                                        "energy_j", "energy_saving", "error",
+                                        "top1_agreement", "kl")}
+                     for p in rep["front"]]
+    info["n_heterogeneous_on_front"] = rep["n_heterogeneous_on_front"]
+    info["baselines_energy_dominated"] = rep["baselines_energy_dominated"]
+    info["roundtrip"] = rep["roundtrip"]
+    info["roundtrip_psum"] = rep["roundtrip_psum"]
+    if rc != 0:
+        problems.append(f"search CLI exit code {rc}: front "
+                        f"{info['n_heterogeneous_on_front']} heterogeneous, "
+                        f"baselines beaten {rep['baselines_energy_dominated']}"
+                        f", roundtrip {rep['roundtrip'].get('ok')}, psum "
+                        f"{rep['roundtrip_psum'].get('ok')}")
+    classes = layer_classes(model_inventory(cfg, 4096))
+    psum_front = [p for p in rep["front"]
+                  if has_psum(report_candidate(p), classes)]
+    if not psum_front:
+        problems.append("no PSUM-quantized policy on the front")
+        return info, problems
+    best_psum = min(psum_front, key=lambda p: p["error"])
+    policies = {"w8a8": QuantPolicy.uniform(QuantConfig.w8a8()),
+                "psum": report_candidate(best_psum).policy()}
+    info["psum_policy"] = best_psum["name"]
+    t0 = time.perf_counter()
+    batch = make_eval_batch(cfg, 2, 32, device=dev)
+    ref = oracle_logits(cfg, batch, device=dev)
+    info["full_width"] = {}
+    for label, policy in policies.items():
+        r = {"energy": energy_report(cfg, policy)}
+        r["accuracy"] = accuracy_proxy(cfg, policy, batch, ref, device=dev)
+        rt = roundtrip_report(cfg, policy, batch, device=dev)
+        r["roundtrip"] = rt
+        r["backend_parity"] = backend_parity_report(cfg.with_quant(policy),
+                                                    device=dev)
+        info["full_width"][label] = r
+        gp = rt.get("gemm_parity", {})
+        if not (gp.get("bit_equal") is True
+                and rt["decode"]["oracle"] == rt["decode"]["cuda"]
+                and rt["ok"] is True):
+            problems.append(f"full-width {label} round trip: {rt}")
+        if r["backend_parity"].get("bit_equal") is not True:
+            problems.append(f"full-width {label} backend parity: "
+                            f"{r['backend_parity']}")
+        if label == "psum" and not gp.get("psum"):
+            problems.append("the PSUM policy's GEMM parity ran no PSUM layer")
+        if not all(math.isfinite(v) for v in r["accuracy"].values()):
+            problems.append(f"full-width {label} accuracy: {r['accuracy']}")
+    sync(torch, dev)
+    info["launches"] = dict(_build.launch_counts)
+    info["full_width_s"] = time.perf_counter() - t0
+    info["seconds"] = time.perf_counter() - t_all
+    info["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    problems += missing_launches("search", info["launches"])
+    return info, problems
+
+
 # ---------------------------------------------------------------------------
 
 def main() -> int:
@@ -2747,6 +2876,9 @@ def main() -> int:
             info, problems = phase_vlm_2l(torch, np, _build,
                                           internvl2_26b.CONFIG, cuda)
             info["cut"] = f"{VLM_LAYERS} of 48 layers (phase time)"
+        elif phase == "search":
+            info, problems = phase_search(torch, np, _build,
+                                          tinyllama_1_1b.CONFIG, cuda)
         if "launches" in info:
             launches[phase] = info["launches"]
         launches.update(info.pop("paths", {}))

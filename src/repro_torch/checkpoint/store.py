@@ -16,8 +16,9 @@ nodes come back as the port's ``QuantState`` / ``DeployedQuantState``,
 and scan-stacked units are unstacked (``convert.unstack_units``) wherever
 a ``units`` subtree sits (an export's top, a trainer checkpoint's
 params and moments), so the tree is the one ``convert_params`` gives for
-the same export.  Checkpoints from before the JAX package's quantizer
-metadata (its ``_upgrade_legacy_quant``) are not read.
+the same export.  A checkpoint from before the quantizer metadata is
+upgraded when the caller passes its ``quant_policy``, as the JAX
+package's ``restore`` does.
 
 ``save`` writes the same layout: leaves from ``models.model.tree_leaves``
 (the walker the optimizer uses), ``quant_states`` from the states it
@@ -219,10 +220,79 @@ def _reify_quant_states(tree: dict, quant_meta: dict) -> dict:
                 spec=spec, name=name,
                 out_dims=tuple(meta.get("out_dims", ()))))
         elif "aw" in node and "ax" in node:
-            _tree_set(tree, parts, QuantState(
-                aw=node["aw"], ax=node["ax"], ap=node.get("ap"), spec=spec,
-                name=name))
+            _tree_set(tree, parts, QuantState.from_dict(node, spec=spec,
+                                                        name=name))
     return tree
+
+
+_MODEL_ROOTS = ("units", "rem", "encoder", "head", "frontend_proj")
+
+# Legacy layer names whose quantizer state was vestigial: the JAX
+# package's old init_rwkv_channel_mix made one for the sigmoid gate
+# ``wr``, which its forward never quantized.  Upgrading it would start
+# quantizing the gate and give the tree another structure than a fresh
+# init's, so it is dropped.
+_LEGACY_VESTIGIAL_SUFFIXES = (".ffn.wr",)
+
+_DROP = object()
+
+
+def _legacy_layer_name(parts) -> str:
+    """A pre-metadata checkpoint path -> the stable layer name:
+    ``params/units/u0/1/mix/wq/qp`` -> ``unit.1.mix.wq``, ``opt/m/rem/0/
+    ffn/wi/qp`` -> ``rem.0.ffn.wi``.  Containers before the first model
+    root (``params``, ``opt/m``, ...) are stripped, so an optimizer
+    moment's quantizer gets its param's name; a per-unit index (``u<i>``)
+    is dropped, names being per pattern position."""
+    parts = [p for p in parts if p != "qp"]
+    for i, p in enumerate(parts):
+        if p in _MODEL_ROOTS:
+            parts = parts[i:]
+            break
+    out = []
+    i = 0
+    while i < len(parts):
+        p = parts[i]
+        if p == "units":
+            out.append("unit")
+            nxt = parts[i + 1] if i + 1 < len(parts) else ""
+            if nxt.startswith("u") and nxt[1:].isdigit():
+                i += 1
+        else:
+            out.append(p)
+        i += 1
+    return ".".join(out)
+
+
+def _upgrade_legacy_quant(tree, quant_policy):
+    """Wrap raw ``{"aw", "ax"[, "ap"]}`` dicts under a ``qp`` / ``qp_<w>``
+    key into ``QuantState``s named by their path, each spec resolved from
+    ``quant_policy`` (a ``QuantPolicy`` or one ``QuantConfig``)."""
+    def resolve(name):
+        if hasattr(quant_policy, "resolve"):
+            return quant_policy.resolve(name)
+        return quant_policy
+
+    def walk(node, parts):
+        if not isinstance(node, dict):
+            return node
+        if (set(node) <= {"aw", "ax", "ap"} and "aw" in node and "ax" in node
+                and parts and parts[-1].startswith("qp")):
+            name = _legacy_layer_name(list(parts[:-1])
+                                      + ([parts[-1][3:]]
+                                         if parts[-1].startswith("qp_")
+                                         else []))
+            if name.endswith(_LEGACY_VESTIGIAL_SUFFIXES):
+                return _DROP
+            return QuantState.from_dict(node, spec=resolve(name), name=name)
+        out = {}
+        for k, v in node.items():
+            r = walk(v, parts + (k,))
+            if r is not _DROP:
+                out[k] = r
+        return out
+
+    return walk(tree, ())
 
 
 def list_steps(ckpt_dir: str) -> list:
@@ -257,10 +327,17 @@ def _load_leaf(path: str, meta: dict, device) -> torch.Tensor:
     return t.to(device)
 
 
-def restore(ckpt_dir: str, step: int | None = None, *,
-            device=None) -> tuple:
+def restore(ckpt_dir: str, step: int | None = None, *, device=None,
+            quant_policy=None) -> tuple:
     """Load a checkpoint onto ``device`` (``None``: the card); returns
-    ``(tree, manifest)`` with ``step=None`` meaning the latest step."""
+    ``(tree, manifest)`` with ``step=None`` meaning the latest step.
+
+    ``quant_policy`` upgrades a checkpoint written before the quantizer
+    metadata (no ``quant_states`` in its manifest): its raw ``{"aw",
+    "ax", "ap"}`` dicts become ``QuantState``s, each named by its path and
+    given its spec from the policy (a ``QuantPolicy`` or a
+    ``QuantConfig``); a vestigial ``.ffn.wr`` quantizer is dropped.
+    Without it such dicts come back as they are."""
     device = resolve_device(device)
     if step is None:
         step = latest_step(ckpt_dir)
@@ -272,5 +349,9 @@ def restore(ckpt_dir: str, step: int | None = None, *,
     tree = _unflatten({
         key: _load_leaf(os.path.join(path, _key_to_fname(key)), meta, device)
         for key, meta in manifest["leaves"].items()})
-    tree = _reify_quant_states(tree, manifest.get("quant_states") or {})
+    quant_meta = manifest.get("quant_states") or {}
+    if quant_meta:
+        tree = _reify_quant_states(tree, quant_meta)
+    elif quant_policy is not None:
+        tree = _upgrade_legacy_quant(tree, quant_policy)
     return unstack_all_units(tree), manifest

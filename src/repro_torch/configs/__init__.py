@@ -3,6 +3,8 @@ from __future__ import annotations
 
 import importlib
 
+from repro_torch.models.config import SHAPE_CELLS, ModelConfig, ShapeCell
+
 _MODULES = {"tinyllama-1.1b": "tinyllama_1_1b",
             "olmoe-1b-7b": "olmoe_1b_7b",
             "starcoder2-15b": "starcoder2_15b",
@@ -16,11 +18,22 @@ _MODULES = {"tinyllama-1.1b": "tinyllama_1_1b",
 
 ARCH_NAMES = tuple(_MODULES)
 
+_MODULE_TO_ARCH = {v: k for k, v in _MODULES.items()}
+
+
+def canonical_arch(name: str) -> str:
+    """Registry id for ``name``, accepting module-style spellings too
+    (``tinyllama_1_1b`` == ``tinyllama-1.1b``)."""
+    if name in _MODULES:
+        return name
+    if name in _MODULE_TO_ARCH:
+        return _MODULE_TO_ARCH[name]
+    raise KeyError(f"unknown arch {name!r}; known: {ARCH_NAMES}")
+
 
 def _module(name: str):
-    if name not in _MODULES:
-        raise KeyError(f"unknown arch {name!r}; the port has {ARCH_NAMES}")
-    return importlib.import_module(f"repro_torch.configs.{_MODULES[name]}")
+    return importlib.import_module(
+        f"repro_torch.configs.{_MODULES[canonical_arch(name)]}")
 
 
 def get_config(name: str, quant="none", gs: int = 2, n_p: int = 8):
@@ -47,4 +60,14 @@ def get_smoke(name: str):
     return _module(name).smoke_config().validate()
 
 
-__all__ = ["ARCH_NAMES", "get_config", "get_smoke"]
+def cells_for(name: str) -> dict:
+    """The assigned shape cells runnable for this arch: ``long_500k`` only
+    for sub-quadratic archs (no full-attention layer)."""
+    cells = {k: v for k, v in SHAPE_CELLS.items() if k != "long_500k"}
+    if get_config(name).sub_quadratic:
+        cells["long_500k"] = SHAPE_CELLS["long_500k"]
+    return cells
+
+
+__all__ = ["ARCH_NAMES", "SHAPE_CELLS", "ModelConfig", "ShapeCell",
+           "canonical_arch", "cells_for", "get_config", "get_smoke"]

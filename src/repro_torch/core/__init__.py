@@ -7,14 +7,14 @@ from .layers import (DeployedQuantState, PsumQuantConfig, QuantConfig,
                      effective_n_p, psum_group_size, quant_dense,
                      quant_params_init, tied_head_weight)
 from .po2 import ceil_log2, floor_log2, pow2
-from .quantizers import (floor_ste, grad_scale, init_alpha_from,
+from .quantizers import (QuantSpec, floor_ste, grad_scale, init_alpha_from,
                          init_log2_alpha_from, lsq_gradient_scale,
                          lsq_quantize, po2_quantize, po2_quantize_codes,
                          po2_scale, qrange, round_half_up_ste, round_ste)
 
 __all__ = [
-    "DeployedQuantState", "PsumQuantConfig", "QuantConfig", "QuantState",
-    "TapRecord", "apsq_accumulate", "apsq_accumulate_reference",
+    "DeployedQuantState", "PsumQuantConfig", "QuantConfig", "QuantSpec",
+    "QuantState", "TapRecord", "apsq_accumulate", "apsq_accumulate_reference",
     "apsq_matmul", "calibrate_dense", "ceil_log2", "deployed_dense",
     "effective_n_p", "floor_log2", "floor_ste", "grad_scale",
     "init_alpha_from", "init_log2_alpha_from", "lsq_gradient_scale",

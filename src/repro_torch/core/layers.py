@@ -86,13 +86,46 @@ class QuantState:
     """Quantizer state of one linear: ``aw`` (LSQ weight scale, [N] or
     scalar), ``ax`` (LSQ activation scale, scalar), ``ap`` (log2 PSUM
     scales [n_p], None without PSUM quantization), the resolved ``spec``
-    and the stable layer ``name``."""
+    and the stable layer ``name``.  Reads like a mapping of its data
+    fields (``qp["ap"]``, ``"ap" in qp``, ``get``, ``as_dict``), as the
+    JAX package's does; ``from_dict`` builds one from such a dict."""
 
     aw: torch.Tensor
     ax: torch.Tensor
     ap: torch.Tensor | None = None
     spec: QuantConfig | None = None
     name: str = ""
+
+    _FIELDS = ("aw", "ax", "ap")
+
+    def __getitem__(self, key):
+        if key in self._FIELDS:
+            v = getattr(self, key)
+            if v is None:
+                raise KeyError(key)
+            return v
+        raise KeyError(key)
+
+    def __contains__(self, key):
+        return key in self._FIELDS and getattr(self, key) is not None
+
+    def get(self, key, default=None):
+        try:
+            return self[key]
+        except KeyError:
+            return default
+
+    def as_dict(self) -> dict:
+        d = {"aw": self.aw, "ax": self.ax}
+        if self.ap is not None:
+            d["ap"] = self.ap
+        return d
+
+    @staticmethod
+    def from_dict(d: dict, spec: QuantConfig | None = None,
+                  name: str = "") -> "QuantState":
+        return QuantState(aw=d["aw"], ax=d["ax"], ap=d.get("ap"),
+                          spec=spec, name=name)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -10,7 +10,8 @@
   * ``po2_scale`` / ``po2_quantize`` — fake quantization at the learned
     power-of-two scale ``2^floor(log2_alpha)`` with round-half-up, the
     RAE shifter's rounding (the PSUM quantizer);
-  * ``po2_quantize_codes`` — INT8 codes at ``2^exp`` (deployment view).
+  * ``po2_quantize_codes`` — INT8 codes at ``2^exp`` (deployment view);
+  * ``QuantSpec`` — the static description of one quantizer.
 
 Forward values are exact: an STE returns the rounded value itself and
 ``grad_scale`` returns its input (JAX's ``x*s + stop_gradient(x*(1-s))``
@@ -25,6 +26,7 @@ function computes its forward value alone.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import torch
@@ -151,3 +153,20 @@ def init_alpha_from(x: torch.Tensor, bits: int = 8,
 def init_log2_alpha_from(x: torch.Tensor, bits: int = 8) -> torch.Tensor:
     """PO2 variant of LSQ init (log2 domain)."""
     return torch.log2(init_alpha_from(x, bits))
+
+
+@dataclasses.dataclass(frozen=True)
+class QuantSpec:
+    """Static description of one quantizer (used by configs & model surgery)."""
+
+    bits: int = 8
+    signed: bool = True
+    po2: bool = False  # power-of-two scale (PSUM quantizers)
+
+    @property
+    def qn(self) -> int:
+        return qrange(self.bits, self.signed)[0]
+
+    @property
+    def qp(self) -> int:
+        return qrange(self.bits, self.signed)[1]

@@ -1,11 +1,13 @@
 """Execution backends for deployed integer ops (port of ``repro.exec``)."""
 from .backends import (AutoBackend, CudaBackend, ExecBackend, OracleBackend,
+                       available_backends, backend_parity_check,
                        execute_expert_gemm, execute_gemm,
                        execute_kv_attention, get_backend, kv_block_size,
-                       quantize_activations)
+                       quantize_activations, register_backend)
 
 __all__ = [
     "AutoBackend", "CudaBackend", "ExecBackend", "OracleBackend",
-    "execute_expert_gemm", "execute_gemm", "execute_kv_attention",
-    "get_backend", "kv_block_size", "quantize_activations",
+    "available_backends", "backend_parity_check", "execute_expert_gemm",
+    "execute_gemm", "execute_kv_attention", "get_backend", "kv_block_size",
+    "quantize_activations", "register_backend",
 ]

@@ -24,9 +24,14 @@ Backends:
 ``execute_gemm`` routes ``psum_exps is None`` to the baseline W8A8 kernel
 and M == 1 to the m=1 decode kernel, as the JAX ops do;
 ``execute_expert_gemm`` routes an expert bank to the fused expert
-kernels (APSQ or W8A8) in one launch for all experts.
+kernels (APSQ or W8A8) in one launch for all experts.  Backends live in
+a registry (``register_backend``, ``available_backends``,
+``get_backend``); ``backend_parity_check`` runs one deployed GEMM
+through several of them side by side.
 """
 from __future__ import annotations
+
+import time
 
 import torch
 
@@ -132,10 +137,22 @@ class AutoBackend(ExecBackend):
                                           length)
 
 
-_REGISTRY = {"oracle": OracleBackend(), "cuda": CudaBackend(),
-             "auto": AutoBackend()}
+_REGISTRY: dict = {}
+
+
+def register_backend(name: str, backend: ExecBackend) -> None:
+    _REGISTRY[name] = backend
+
+
+register_backend("oracle", OracleBackend())
+register_backend("cuda", CudaBackend())
+register_backend("auto", AutoBackend())
 
 DEFAULT_BACKEND = "auto"
+
+
+def available_backends() -> tuple:
+    return tuple(sorted(_REGISTRY))
 
 
 def get_backend(backend=None) -> ExecBackend:
@@ -148,7 +165,7 @@ def get_backend(backend=None) -> ExecBackend:
         return _REGISTRY[backend]
     except KeyError:
         raise KeyError(f"unknown exec backend {backend!r}; "
-                       f"known: {sorted(_REGISTRY)}") from None
+                       f"known: {available_backends()}") from None
 
 
 def quantize_activations(x2d: torch.Tensor, ax_exp: torch.Tensor,
@@ -179,6 +196,42 @@ def execute_gemm(dq: DeployedQuantState, x: torch.Tensor, *,
     y = backend.int_gemm(xc, dq.w_codes, dq.psum_exps, gs=gs)
     scale = pow2(dq.ax_exp + dq.aw_exp).to(y.device)
     return (y.float() * scale).to(x.dtype).reshape(out_shape)
+
+
+def backend_parity_check(dq: DeployedQuantState, x: torch.Tensor, *,
+                         backends=("oracle", "cuda"), reps: int = 1,
+                         warmup: int = 1):
+    """Run one deployed GEMM through several backends, side by side.
+
+    Returns ``(outs, times_us, bit_equal)``: per-backend outputs, keyed by
+    the backend's name; per-backend wall-clock in microseconds (eager,
+    after ``warmup`` calls, the mean of ``reps``; on the card each timed
+    span starts and ends with ``torch.cuda.synchronize``); and whether
+    every output is bit-identical to the first, or None when fewer than
+    two backends ran (no parity is claimed that was not run).  A backend
+    that cannot take ``x``'s device raises (``cuda`` on a CPU tensor).
+    """
+    def sync():
+        if x.device.type == "cuda":
+            torch.cuda.synchronize(x.device)
+
+    outs, times = {}, {}
+    with torch.no_grad():
+        for be in backends:
+            resolved = get_backend(be)
+            for _ in range(warmup):
+                execute_gemm(dq, x, backend=resolved)
+            sync()
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                out = execute_gemm(dq, x, backend=resolved)
+            sync()
+            times[resolved.name] = (time.perf_counter() - t0) / reps * 1e6
+            outs[resolved.name] = out
+    vals = list(outs.values())
+    bit_equal = (all(torch.equal(vals[0], v) for v in vals[1:])
+                 if len(vals) > 1 else None)
+    return outs, times, bit_equal
 
 
 def execute_expert_gemm(dq: DeployedQuantState, x: torch.Tensor, *,

@@ -5,6 +5,8 @@ goes to the hand-written kernel in ``csrc/apsq_matmul.cu`` or raises.
 There is no fallback between the two.  The wrapper zero-pads ragged
 ``K % n_p`` (``ref.pad_ragged_k``), checks types and shapes, allocates
 the output, launches on the current stream and counts the launch.
+``quantize_operands``, ``apsq_matmul_f32`` and ``calibrate_exps`` are
+the float entry and the calibration helper of the JAX package's ops.
 """
 from __future__ import annotations
 
@@ -239,3 +241,32 @@ def baseline_matmul_int8(x_codes: torch.Tensor,
         plan.splits, plan.k_split, _build.stream_ptr(x.device))
     _build.check(err, "baseline_matmul")
     return out
+
+
+def quantize_operands(x: torch.Tensor, w: torch.Tensor, *, ax, aw):
+    """Float activations/weights -> INT8 codes with scales ``ax``
+    (per-tensor) and ``aw`` (per-tensor or per-column [N]): round half to
+    even, clipped to [-128, 127]."""
+    ax = torch.as_tensor(ax, dtype=torch.float32, device=x.device)
+    aw = torch.as_tensor(aw, dtype=torch.float32, device=w.device)
+    xq = torch.clamp(torch.round(x / ax), -128, 127).to(torch.int8)
+    wq = torch.clamp(torch.round(w / aw), -128, 127).to(torch.int8)
+    return xq, wq
+
+
+def apsq_matmul_f32(x: torch.Tensor, w: torch.Tensor, exps: torch.Tensor, *,
+                    gs: int, ax, aw) -> torch.Tensor:
+    """Deployment-path float entry: quantize -> ``apsq_matmul_int8`` (the
+    kernel on the card, its plain version on the CPU) -> rescale by the
+    product scale ``ax * aw`` (``aw`` broadcasts per column)."""
+    xq, wq = quantize_operands(x, w, ax=ax, aw=aw)
+    y = apsq_matmul_int8(xq, wq, exps, gs=gs)
+    return (y.float() * torch.as_tensor(ax, dtype=torch.float32,
+                                        device=y.device)
+            * torch.as_tensor(aw, dtype=torch.float32, device=y.device))
+
+
+def calibrate_exps(x_codes: torch.Tensor, w_codes: torch.Tensor, *, n_p: int,
+                   gs: int) -> torch.Tensor:
+    """Exponent calibration from a sample batch (``ref.choose_exps``)."""
+    return ref.choose_exps(x_codes, w_codes, n_p=n_p, gs=gs)

@@ -3,6 +3,8 @@
 
 A tensor on the CPU goes to the plain version (``ref``); a CUDA tensor
 goes to the kernel in ``csrc/int8_kv_attention.cu`` or raises.
+``int8_kv_attention_f32`` quantizes a float cache first; ``cache_bytes``
+counts the bytes a decode step reads.
 """
 from __future__ import annotations
 
@@ -114,3 +116,21 @@ def int8_kv_attention(q: torch.Tensor, k_codes: torch.Tensor,
     _build.check(err, "int8_kv_attention")
     out = out.to(q.dtype)
     return out[:, 0] if squeeze else out
+
+
+def int8_kv_attention_f32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          length) -> torch.Tensor:
+    """Float entry: quantize the cache ``k``/``v`` [B, S, Hkv, hd] to INT8
+    with PO2 exponents per (batch, kv-head) (``ref.quantize_kv_po2``),
+    then ``int8_kv_attention``."""
+    k_codes, k_exp = ref.quantize_kv_po2(k)
+    v_codes, v_exp = ref.quantize_kv_po2(v)
+    return int8_kv_attention(q, k_codes, v_codes, k_exp, v_exp, length)
+
+
+def cache_bytes(B: int, S: int, Hkv: int, hd: int) -> dict:
+    """The bandwidth story: INT8 cache vs bf16 per decode step."""
+    return {
+        "int8": B * S * Hkv * hd * 2 * 1 + B * Hkv * 2 * 4,  # + exps
+        "bf16": B * S * Hkv * hd * 2 * 2,
+    }

@@ -4,6 +4,7 @@ Params are nested dicts of tensors.  Every projection goes through
 ``dense``, which dispatches on the layer's state: a ``QuantState`` runs
 W8A8 (+ PSQ/APSQ) fake quant, a ``DeployedQuantState`` the integer path
 through ``repro_torch.exec``, no state a plain float GEMM.
+``count_params`` counts a tree's elements.
 """
 from __future__ import annotations
 
@@ -207,3 +208,11 @@ def apply_mlp(p: Params, x: torch.Tensor, kind: str = "swiglu", *,
     else:
         raise NotImplementedError(f"mlp {kind!r} is not ported yet")
     return dense(p["wo"], h, tap=tap, backend=backend)
+
+
+def count_params(params) -> int:
+    """Elements over every tensor leaf of a params tree (quantizer states'
+    scales included, as ``jax.tree.leaves`` counts them)."""
+    from .model import tree_leaves       # lazy: model imports common
+    return sum(int(t.numel()) for _, t in tree_leaves(params)
+               if isinstance(t, torch.Tensor))

@@ -9,7 +9,8 @@ channel mix, partial RoPE, a tied or untied head; an encoder stack of
 ``n_enc_layers`` with cross-attention in the decoder when ``encdec``; a
 modality stub ``frontend``: ``"audio"`` frames feed the encoder,
 ``"vision"`` patches are projected and prepended to the tokens;
-``remat`` / ``remat_policy`` and ``z_loss`` for training).  ``n_layers``
+``remat`` / ``remat_policy`` and ``z_loss`` for training), and the
+assigned input-shape cells ``SHAPE_CELLS``.  ``n_layers``
 is ``n_units`` repeats of the pattern plus ``n_rem`` remainder layers
 (the pattern's first ``n_rem`` kinds).  The JAX package's
 ``scan_layers`` has no counterpart: the port always holds units as
@@ -83,12 +84,21 @@ class ModelConfig:
         return _DTYPES[self.dtype]
 
     @property
+    def pattern_kinds(self) -> tuple:
+        return tuple(self.block_pattern)
+
+    @property
     def n_units(self) -> int:
         return self.n_layers // len(self.block_pattern)
 
     @property
     def n_rem(self) -> int:
         return self.n_layers % len(self.block_pattern)
+
+    @property
+    def sub_quadratic(self) -> bool:
+        """True if no full-attention layer exists (long_500k eligibility)."""
+        return all(k in ("rwkv", "rglru", "local") for k in self.block_pattern)
 
     @property
     def recurrent(self) -> bool:
@@ -145,3 +155,25 @@ class ModelConfig:
                 "audio or vision frontend stub) of the families "
                 f"{FAMILIES} only")
         return self
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeCell:
+    """One assigned (input-shape) cell: a sequence length, a global batch
+    and what runs at it."""
+    name: str            # train_4k | prefill_32k | decode_32k | long_500k
+    seq_len: int
+    global_batch: int
+    kind: str            # train | prefill | decode
+
+    @property
+    def is_serving(self) -> bool:
+        return self.kind in ("prefill", "decode")
+
+
+SHAPE_CELLS = {
+    "train_4k": ShapeCell("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeCell("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeCell("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeCell("long_500k", 524288, 1, "decode"),
+}

@@ -5,8 +5,9 @@ policies (port of ``repro/quant/qat.py``).
 student) on logits mixed with cross entropy), ``make_distill_loss_fn``
 its ``(params, batch) -> loss`` with the teacher's forward under
 ``torch.no_grad``, and ``quant_variants`` the named uniform policies of
-the gs sweep.  Training itself differentiates through the same
-fake-quant forward (``repro_torch.train``); calibration is forward only.
+the gs sweep (``SweepResult`` one point of it).  Training itself
+differentiates through the same fake-quant forward
+(``repro_torch.train``); calibration is forward only.
 
 ``calibrate_model`` runs the model one unit at a time with fake-quant
 linears.  ``quant_dense`` appends a ``TapRecord`` per linear to the
@@ -26,6 +27,8 @@ name ``"head"``), calibrated on the final-norm hidden states over
 ``tied_head_weight(table)``.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
@@ -201,6 +204,16 @@ def make_distill_loss_fn(cfg_student, cfg_teacher, teacher_params,
         return distill_loss(s_logits, t_logits, batch["labels"], alpha,
                             temperature)
     return loss_fn
+
+
+@dataclasses.dataclass
+class SweepResult:
+    """One point of the gs sweep (Table I): the policy's gs and mode, and
+    its final training and evaluation losses."""
+    gs: int
+    mode: str
+    final_loss: float
+    eval_loss: float
 
 
 def quant_variants(gs_values=(1, 2, 3, 4), n_p: int = 8) -> dict:

@@ -52,6 +52,11 @@ machine without JAX:
   ``encode`` and 8 ``decode_step(enc_out=)`` steps and
   ``internvl2-smoke`` through ``forward(embeds=)`` bit-equal on the
   ``cuda`` and ``oracle`` backends.
+* The search's small APIs: ``backend_parity_check`` (oracle vs cuda)
+  bit-equal for kernels 1, 2 and 4; ``apsq_matmul_f32`` bit-equal and
+  ``int8_kv_attention_f32`` within rtol 2e-5 / atol 2e-6 of their CPU
+  versions; ``roundtrip_report`` on ``tinyllama-smoke`` ``ok`` under
+  W8A8 and ``mix2_ffn4``.
 """
 import numpy as np
 import pytest
@@ -1246,3 +1251,111 @@ def test_internvl2_smoke_forward_with_embeds_cuda_equals_oracle(no_tf32):
                        backend="oracle")
     assert got.shape == (2, 12, cfg.vocab)
     assert torch.equal(got, want)
+
+
+def _deployed_linear_on(dev, spec, k, n, seed=0):
+    from repro_torch.core import calibrate_dense, quant_params_init
+    from repro_torch.quant import export_quantized
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.randn((8, k), generator=gen)
+    w = torch.randn((k, n), generator=gen) * 0.05
+    qp = calibrate_dense(quant_params_init(w, spec, name="lin"), x, w)
+    dep, _ = export_quantized({"lin": {"w": w.to(dev),
+                                       "qp": _qp_to(qp, dev)}})
+    return dep["lin"]["qp"]
+
+
+def _qp_to(qp, dev):
+    import dataclasses
+    return dataclasses.replace(qp, **{
+        f: getattr(qp, f).to(dev) for f in ("aw", "ax", "ap")
+        if getattr(qp, f) is not None})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,m", [("apsq", 4), ("apsq", 1), ("w8a8", 4),
+                                    ("w8a8", 1)])
+def test_backend_parity_check_bit_equal_on_card(cuda, kind, m):
+    """``backend_parity_check(oracle, cuda)``: kernel 1 (APSQ, M > 1),
+    kernel 4 (APSQ, M = 1) and kernel 2 (W8A8) bit-equal to the torch
+    oracle on one deployed linear, each launched once per call."""
+    from repro_torch.core import QuantConfig
+    from repro_torch.exec import backend_parity_check
+    spec = (QuantConfig.apsq(gs=2, n_p=8) if kind == "apsq"
+            else QuantConfig.w8a8())
+    dq = _deployed_linear_on(cuda, spec, 256, 96)
+    x = torch.randn((m, 256), generator=torch.Generator().manual_seed(m)
+                    ).to(cuda)
+    _build.reset_launch_counts()
+    outs, times, bit_equal = backend_parity_check(dq, x, reps=2, warmup=1)
+    name = ("baseline_matmul" if kind == "w8a8"
+            else "apsq_matmul_m1" if m == 1 else "apsq_matmul")
+    assert bit_equal is True and list(times) == ["oracle", "cuda"]
+    assert {k: v for k, v in _build.launch_counts.items() if v} == {name: 3}
+    assert outs["cuda"].shape == (m, 96)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("per_col", [False, True])
+def test_float_helpers_on_card(cuda, per_col):
+    """``apsq_matmul_f32`` on the card == its plain version on the CPU,
+    bit for bit (the codes and the integer GEMM are exact; the rescale
+    is one float product each), through kernel 1; and
+    ``int8_kv_attention_f32`` within rtol 2e-5 / atol 2e-6 of the CPU's
+    (kernel 3)."""
+    from repro_torch.kernels.apsq_matmul import (apsq_matmul_f32,
+                                                 calibrate_exps,
+                                                 quantize_operands)
+    from repro_torch.kernels.int8_kv_attention import int8_kv_attention_f32
+    gen = torch.Generator().manual_seed(int(per_col))
+    x = torch.randn((8, 512), generator=gen)
+    w = torch.randn((512, 200), generator=gen) * 0.1
+    ax = torch.tensor(0.03)
+    aw = (torch.rand(200, generator=gen) * 0.002 + 0.002 if per_col
+          else torch.tensor(0.003))
+    xq, wq = quantize_operands(x, w, ax=ax, aw=aw)
+    exps = calibrate_exps(xq, wq, n_p=8, gs=4)
+    want = apsq_matmul_f32(x, w, exps, gs=4, ax=ax, aw=aw)
+    _build.reset_launch_counts()
+    got = apsq_matmul_f32(x.to(cuda), w.to(cuda), exps.to(cuda), gs=4,
+                          ax=ax.to(cuda), aw=aw.to(cuda))
+    assert _build.launch_counts.get("apsq_matmul") == 1
+    assert torch.equal(got.cpu(), want)
+    q = torch.randn((2, 8, 64), generator=gen)
+    k = torch.randn((2, 96, 4, 64), generator=gen)
+    v = torch.randn((2, 96, 4, 64), generator=gen) * 0.5
+    length = torch.tensor([50, 96], dtype=torch.int32)
+    want = int8_kv_attention_f32(q, k, v, length)
+    got = int8_kv_attention_f32(q.to(cuda), k.to(cuda), v.to(cuda),
+                                length.to(cuda))
+    assert _build.launch_counts.get("int8_kv_attention") == 1
+    torch.testing.assert_close(got.cpu(), want, rtol=2e-5, atol=2e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("preset", ["w8a8", "mix2_ffn4"])
+def test_roundtrip_report_on_card(no_tf32, preset):
+    """The search's servability proof on ``tinyllama-smoke``: calibrate ->
+    export -> GEMM parity (oracle vs cuda, bit-equal) and greedy decode
+    on the dense engine pinned to each backend (equal tokens), ``ok``;
+    the kernels named by the policy launch."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.core import QuantConfig
+    from repro_torch.quant import QuantPolicy, policy_presets
+    from repro_torch.search import make_eval_batch, roundtrip_report
+    cfg = get_smoke("tinyllama-1.1b")
+    policy = (QuantPolicy.uniform(QuantConfig.w8a8()) if preset == "w8a8"
+              else policy_presets()[preset])
+    batch = make_eval_batch(cfg, 2, 32, device=no_tf32)
+    _build.reset_launch_counts()
+    rt = roundtrip_report(cfg, policy, batch, device=no_tf32)
+    assert rt["backends"] == ["oracle", "cuda"]
+    assert rt["gemm_parity"]["bit_equal"] is True
+    assert rt["gemm_parity"]["psum"] == (preset != "w8a8")
+    assert rt["decode"]["oracle"] == rt["decode"]["cuda"]
+    assert len(rt["decode"]["cuda"]) == 6
+    assert rt["serving_parity"] is True and rt["ok"] is True
+    want = (("baseline_matmul",) if preset == "w8a8"
+            else ("apsq_matmul", "apsq_matmul_m1"))
+    for name in want:
+        assert _build.launch_counts.get(name, 0) > 0, name

@@ -76,6 +76,19 @@ def _cfgs(family: str):
     return jcfg, tcfg
 
 
+# JAX's init, forward and quant_dense, each under one jit where the
+# values they give are compared within a tolerance or by structure
+# (eagerly JAX compiles every op apart).  Eager stay: calibrate_model
+# (its capture tap sees tracers under jit), export (it reads array values
+# into its report), the init of the compared models and the forward on
+# float scales (a jit fuses float ops, which can move a fake-quant code:
+# those tests hold exact greedy tokens on these seeds' values)
+_j_init_lm = jax.jit(j_init_lm, static_argnums=1)
+_j_forward = jax.jit(j_forward, static_argnums=1,
+                     static_argnames="backend")
+_j_quant_dense = jax.jit(j_quant_dense)
+
+
 @functools.lru_cache(maxsize=None)
 def _jax_model(family: str) -> dict:
     """JAX float params, calibration tokens, calibrated tree and export;
@@ -160,8 +173,8 @@ def test_partial_rope_matches_jax(fraction):
 @pytest.mark.parametrize("family", FAMILIES)
 def test_init_lm_builds_the_jax_tree(family):
     jcfg, tcfg = _cfgs(family)
-    jtree = j_init_lm(jax.random.PRNGKey(0),
-                      dataclasses.replace(jcfg, scan_layers=False))
+    jtree = _j_init_lm(jax.random.PRNGKey(0),
+                       dataclasses.replace(jcfg, scan_layers=False))
     ttree = init_lm(tcfg, seed=0, device="cpu")
     assert _keys(ttree) == _keys(jtree)
     assert ("head" in ttree) == (not tcfg.tie_embeddings)
@@ -194,7 +207,8 @@ def test_forward_logits_match_jax(family):
     tok = jnp.asarray(m["tok"])
     for tree in (m["p0"], _po2_scales(m["calibrated"]), m["deploy"],
                  m["calibrated"]):
-        want = np.asarray(j_forward(tree, m["jcfg"], tok, backend="oracle"))
+        fwd = j_forward if tree is m["calibrated"] else _j_forward
+        want = np.asarray(fwd(tree, m["jcfg"], tok, backend="oracle"))
         got = forward(convert_params(tree, device="cpu"), m["tcfg"],
                       torch.from_numpy(m["tok"]), backend="oracle").numpy()
         if tree is m["calibrated"]:
@@ -215,7 +229,7 @@ def test_float_scale_gap_is_one_psum_code(family):
     units = m["calibrated"]["units"]
     n = jax.tree.leaves(units)[0].shape[0]
     tree = {**m["calibrated"], "units": {
-        f"u{i}": jax.tree.map(lambda a, i=i: a[i], units)
+        f"u{i}": jax.tree.map(lambda a, i=i: np.asarray(a)[i], units)
         for i in range(n)}}
     tap = []
     j_forward(tree, dataclasses.replace(m["jcfg"], scan_layers=False),
@@ -223,7 +237,7 @@ def test_float_scale_gap_is_one_psum_code(family):
     assert len(tap) == n * (6 if m["jcfg"].mlp == "gelu" else 7)
     for r in tap:
         assert r.qp.ap is not None, r.name       # mix2_ffn4: all APSQ
-        want = np.asarray(j_quant_dense(r.x, r.w, r.qp))
+        want = np.asarray(_j_quant_dense(r.x, r.w, r.qp))
         got = quant_dense(torch.tensor(np.asarray(r.x)),
                           torch.tensor(np.asarray(r.w)),
                           convert_params({"qp": r.qp}, device="cpu")["qp"]

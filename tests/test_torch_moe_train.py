@@ -63,6 +63,12 @@ from repro_torch.train import (TrainConfig, Trainer, make_grads_fn,
                                make_train_step)
 
 
+# JAX's init, update and differentiated functions each under one jit
+# (eagerly JAX compiles every op apart)
+_j_init_lm = jax.jit(j_init_lm, static_argnums=1)
+_j_apply_updates = jax.jit(j_apply_updates, static_argnums=3)
+
+
 def _t(a, grad=False):
     return torch.tensor(np.asarray(a), requires_grad=grad)
 
@@ -156,8 +162,8 @@ def test_expert_gemm_values_and_grads_match_jax(E, case):
     jargs = [jnp.asarray(a) for a in (x, w, aw, ax)] + [
         jnp.asarray(la) if has_ap else None]
     argnums = (0, 1, 2, 3) + ((4,) if has_ap else ())
-    jval = jf(*jargs)
-    jg = jax.grad(lambda *a: jnp.sum(jf(*a) * ct), argnums)(*jargs)
+    jval = jax.jit(jf)(*jargs)
+    jg = jax.jit(jax.grad(lambda *a: jnp.sum(jf(*a) * ct), argnums))(*jargs)
     leaves = [_t(a, True) for a in (x, w, aw, ax)] + (
         [_t(la, True)] if has_ap else [])
     qp = QuantState(aw=leaves[2], ax=leaves[3],
@@ -244,7 +250,7 @@ def _jax_calibrated(seed: int):
     batch = JSyntheticCorpus(JDataConfig(vocab=256, seq_len=16,
                                          global_batch=4,
                                          seed=seed)).batch_at(seed)
-    p0 = j_init_lm(jax.random.PRNGKey(seed), _jcfg())
+    p0 = _j_init_lm(jax.random.PRNGKey(seed), _jcfg())
     calibrated = calibrate_model(convert_params(p0, device="cpu"), _tcfg(),
                                  {"tokens": batch["tokens"]})
     return _with_scales(p0, calibrated), batch
@@ -309,8 +315,8 @@ def test_moe_ffn_grads_match_jax(monkeypatch, cf):
         return jnp.sum(j_moe.moe_ffn(p, x, **kw) * ct)
 
     jvals = [_get(jffn, p) for p in paths]
-    jg = jax.grad(jloss, tuple(range(len(paths) + 1)))(jnp.asarray(x),
-                                                        *jvals)
+    jg = jax.jit(jax.grad(jloss, tuple(range(len(paths) + 1))))(
+        jnp.asarray(x), *jvals)
     # the port, recording the gradient that reaches each dispatched
     # entry: the gather of the [T, d] tokens by the T * top_k sorted
     # entries' token ids
@@ -341,8 +347,8 @@ def test_moe_ffn_grads_match_jax(monkeypatch, cf):
     with WatchGather():
         y = t_moe.moe_ffn(_set_all(tffn, paths, tvals), tx, **kw)
     np.testing.assert_allclose(
-        y.detach().numpy(), np.asarray(j_moe.moe_ffn(jffn, jnp.asarray(x),
-                                                     **kw)),
+        y.detach().numpy(), np.asarray(jax.jit(
+            lambda p, x: j_moe.moe_ffn(p, x, **kw))(jffn, jnp.asarray(x))),
         rtol=1e-5, atol=1e-5)
     (y * _t(ct)).sum().backward()
     keep = seen["keep"].numpy()
@@ -373,7 +379,7 @@ def _path_key(path):
 
 
 def test_decay_mask_on_moe_tree_matches_jax():
-    jparams = j_init_lm(jax.random.PRNGKey(0), _jcfg())
+    jparams = _j_init_lm(jax.random.PRNGKey(0), _jcfg())
     got = _by_path(decay_mask(convert_params(jparams, device="cpu")))
     want = {_path_key(p): bool(v) for p, v in
             jax.tree_util.tree_leaves_with_path(j_decay_mask(jparams))}
@@ -392,7 +398,7 @@ def test_apply_updates_on_moe_tree_matches_jax(adafactor):
     slice's bound (rtol 2e-5, atol 1e-7; float32 elementwise updates).
     With ``adafactor_like`` the 3-D banks' second moments factor over
     their last two dims, ``[E, K]`` rows and ``[E, N]`` columns."""
-    jparams = j_init_lm(jax.random.PRNGKey(1), _jcfg())
+    jparams = _j_init_lm(jax.random.PRNGKey(1), _jcfg())
     ocfg = dict(lr=1e-2, warmup_steps=2, total_steps=6, clip_norm=1.0,
                 adafactor_like=adafactor)
     jo, to = JOptimConfig(**ocfg), OptimConfig(**ocfg)
@@ -408,7 +414,8 @@ def test_apply_updates_on_moe_tree_matches_jax(adafactor):
         jgrads = jax.tree_util.tree_unflatten(
             jax.tree_util.tree_structure(jparams), gl)
         tgrads = convert_params(jgrads, device="cpu")
-        jparams, jstate, jstats = j_apply_updates(jparams, jgrads, jstate, jo)
+        jparams, jstate, jstats = _j_apply_updates(jparams, jgrads, jstate,
+                                                   jo)
         tparams, tstate, tstats = apply_updates(tparams, tgrads, tstate, to)
         np.testing.assert_allclose(float(tstats["grad_norm"]),
                                    float(jstats["grad_norm"]), rtol=1e-6)
