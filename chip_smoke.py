@@ -223,8 +223,24 @@ Phases (each exits non-zero on failure):
              ``backend_parity_report`` (M = 8, bit-equal).  The whole
              phase is the path's zeroed run: kernels 1, 2 and 4 must
              launch.  Records seconds and peak memory.
+  dryrun     the one-device dry run (``repro_torch.launch.dryrun``) of
+             full-width TinyLlama-1.1B: train_4k, prefill_32k and
+             decode_32k counted on meta tensors (one line each: FLOPs,
+             bytes, dominant term, bound_s at the H100's rates, peak
+             bytes, whether it fits 80 GB); a real prefill step on the
+             card at B=1, S=2048 whose counted FLOPs must equal the dry
+             run's at that shape exactly, with max_memory_allocated
+             (less what was allocated before the step's params were
+             made) against the predicted peak and the step's time against
+             bound_s (share of the roofline); ``--backend-parity`` under
+             apsq (kernel 1) and w8a8 (kernel 2), bit-equal, the
+             corrected roofline read from ``cuda_us``; the search's
+             round trip of seamless-smoke (``encode`` +
+             ``decode_step(enc_out=)``, enc_heavy) with equal ``oracle``
+             and ``cuda`` tokens.  The phase is the path's zeroed run:
+             kernels 1, 2 and 4 must launch.
 
-The main path runs in seventeen configurations, each its own path:
+The main path runs in eighteen configurations, each its own path:
 ``serve`` (mix2_ffn4: every layer APSQ), ``w8a8`` (ffn_only: W8A8
 attention projections), ``moe_serve`` (OLMoE, mix2_ffn4), ``moe_w8a8``
 (OLMoE, W8A8), ``load`` (the restored JAX export), ``sc2_serve``,
@@ -232,8 +248,9 @@ attention projections), ``moe_serve`` (OLMoE, mix2_ffn4), ``moe_w8a8``
 serve tails; the training step itself is plain PyTorch and reaches no
 kernel), ``qwen3_2l``, ``rwkv_serve``, ``rg_serve``,
 ``seamless_serve`` (its batched run; its single-stream runs are
-``seamless_serve/single``), ``vlm_2l`` and ``search`` (the search's
-CLI and the full-width round trips).  Launch
+``seamless_serve/single``), ``vlm_2l``, ``search`` (the search's
+CLI and the full-width round trips) and ``dryrun`` (the backend parity
+probes and the encoder-decoder round trip).  Launch
 counts are zeroed just before each and read just after; every kernel of
 each path must have launched.  The line before the
 last holds the per-kernel record: ``launches`` is the count of the path
@@ -261,7 +278,7 @@ F32_OPS_PER_S = 67e12          # H100 SXM float32 outside the tensor cores
 PHASES = ("build", "kernels", "reference", "serve", "w8a8", "moe_reference",
           "moe_serve", "moe_w8a8", "load", "sc2_serve", "dense_2l", "train",
           "moe_train", "qwen3_2l", "rwkv_serve", "rg_serve", "seamless_serve",
-          "vlm_2l", "search")
+          "vlm_2l", "search", "dryrun")
 FIXTURE = os.path.join(ROOT, "tests", "fixtures",
                        "jax_export_starcoder2_smoke")
 NO_BATCHED_INT8_MM = ("none: PyTorch has no single call for a batched "
@@ -317,6 +334,7 @@ PATH_KERNELS = {
     "seamless_serve/single": ("apsq_matmul", "apsq_matmul_m1"),
     "vlm_2l": ("apsq_matmul", "apsq_matmul_m1", "int8_kv_attention"),
     "search": ("apsq_matmul", "apsq_matmul_m1", "baseline_matmul"),
+    "dryrun": ("apsq_matmul", "apsq_matmul_m1", "baseline_matmul"),
 }
 
 
@@ -2750,6 +2768,116 @@ def phase_search(torch, np, _build, cfg, dev):
     return info, problems
 
 
+DRYRUN_STEP = (1, 2048)      # the real prefill step: batch, sequence
+
+
+def phase_dryrun(torch, np, _build, cfg, dev):
+    """The one-device dry run (``repro_torch.launch.dryrun``) of
+    full-width TinyLlama-1.1B: every cell counted on meta tensors; a real
+    prefill step at B=1, S=2048 on the card held to the count at its
+    shape (FLOPs exactly; peak memory and time reported); the
+    ``--backend-parity`` probe on kernels 1 (apsq) and 2 (w8a8) with the
+    roofline corrected from ``cuda_us``; the search's encoder-decoder
+    round trip on seamless-smoke.  One zeroed run."""
+    from repro_torch.configs import cells_for, get_smoke
+    from repro_torch.launch import dryrun
+    from repro_torch.models.config import ShapeCell
+    from repro_torch.quant import policy_presets
+    from repro_torch.search import make_eval_batch, roundtrip_report
+    arch = "tinyllama-1.1b"
+    info, problems = {"config": cfg.name, "layers": cfg.n_layers}, []
+    keys = ("flops", "bytes", "dominant", "bound_s", "peak_bytes", "fits",
+            "count_s", "depth")
+    torch.cuda.empty_cache()
+    _build.reset_launch_counts()        # the path's zeroed run
+    t_all = time.perf_counter()
+    info["cells"] = {}
+    for name in cells_for(arch):
+        r = dryrun.run_cell(arch, name, device=dev, verbose=False)
+        if not r["ok"]:
+            problems.append(f"dry run {name}: {r.get('error')}")
+            continue
+        info["cells"][name] = {k: r[k] for k in keys}
+        print(json.dumps({"dryrun_cell": name, **info["cells"][name]}),
+              flush=True)
+
+    # a real step at a shape that fits, against its count
+    B, S = DRYRUN_STEP
+    shape = ShapeCell("prefill_2k", S, B, "prefill")
+    r = dryrun.run_cell(arch, "prefill_32k", shape=shape, device=dev,
+                        verbose=False)
+    if not r["ok"]:
+        problems.append(f"dry run at B={B} S={S}: {r.get('error')}")
+        return info, problems
+    sync(torch, dev)
+    before = torch.cuda.memory_allocated()    # what earlier phases left
+    step = dryrun.build_cell(cfg, shape, device=dev)
+    fn = step.parts[0][1]
+    sync(torch, dev)
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    sync(torch, dev)
+    peak = torch.cuda.max_memory_allocated() - before
+    times = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        fn()
+        sync(torch, dev)
+        times.append(time.perf_counter() - t0)
+    step_s = sorted(times)[2]
+    counted = dryrun.count_step(step)
+    del step, fn
+    real = {"shape": [B, S], "flops": counted["flops"],
+            "bytes": counted["bytes"], "predicted_flops": r["flops"],
+            "flops_equal": counted["flops"] == r["flops"],
+            "allocated_before": before,
+            "max_memory_allocated": peak + before,
+            "predicted_peak_bytes": r["peak_bytes"],
+            "memory_ratio": peak / r["peak_bytes"],    # the step's own
+            "step_s": step_s, "bound_s": r["bound_s"],
+            "dominant": r["dominant"],
+            "share_of_roofline": r["bound_s"] / step_s,
+            "depth": r["depth"]}
+    info["real_step"] = real
+    print(json.dumps({"dryrun_real_step": real}), flush=True)
+    if not real["flops_equal"]:
+        problems.append(f"real step FLOPs {counted['flops']} != counted "
+                        f"{r['flops']}")
+    if not 0.75 <= real["memory_ratio"] <= 1.33:
+        info["memory_finding"] = ("max_memory_allocated / predicted peak "
+                                  "outside 0.75-1.33: see PERF.md")
+
+    # kernel 1 (apsq) and kernel 2 (w8a8) under --backend-parity
+    info["backend_parity"] = {}
+    for quant in ("apsq", "w8a8"):
+        r = dryrun.run_cell(arch, "decode_32k", quant=quant,
+                            backend_parity=True, device=dev, verbose=False)
+        bp, br = r.get("backend_parity", {}), r.get("backend_roofline", {})
+        info["backend_parity"][quant] = {
+            "ok": r["ok"], "parity": bp, "backend_roofline": br}
+        if not (r["ok"] and bp.get("bit_equal") is True
+                and br.get("probe_backend") == "cuda"
+                and br.get("probe_measured_us") == round(bp["cuda_us"], 1)):
+            problems.append(f"--backend-parity {quant}: {r.get('error')} "
+                            f"{bp} {br}")
+
+    # the search's round trip of an encoder-decoder
+    scfg = get_smoke("seamless-m4t-large-v2")
+    batch = make_eval_batch(scfg, 2, 32, device=dev)
+    rt = roundtrip_report(scfg, policy_presets()["enc_heavy"], batch,
+                          device=dev)
+    info["encdec_roundtrip"] = rt
+    if not (rt["ok"] is True and rt["decode"]["oracle"] == rt["decode"][
+            "cuda"]):
+        problems.append(f"seamless-smoke round trip: {rt}")
+    sync(torch, dev)
+    info["launches"] = dict(_build.launch_counts)
+    info["seconds"] = time.perf_counter() - t_all
+    info["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    problems += missing_launches("dryrun", info["launches"])
+    return info, problems
+
+
 # ---------------------------------------------------------------------------
 
 def main() -> int:
@@ -2878,6 +3006,9 @@ def main() -> int:
             info["cut"] = f"{VLM_LAYERS} of 48 layers (phase time)"
         elif phase == "search":
             info, problems = phase_search(torch, np, _build,
+                                          tinyllama_1_1b.CONFIG, cuda)
+        elif phase == "dryrun":
+            info, problems = phase_dryrun(torch, np, _build,
                                           tinyllama_1_1b.CONFIG, cuda)
         if "launches" in info:
             launches[phase] = info["launches"]

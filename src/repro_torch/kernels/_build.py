@@ -128,6 +128,20 @@ def entry(name: str):
     return fn
 
 
+def require_data(name: str, *tensors) -> None:
+    """Raise unless every tensor is a CUDA tensor with device memory: a
+    meta or fake tensor (shapes without data, as the dry run makes) never
+    reaches a launch."""
+    import torch
+    from torch._subclasses.fake_tensor import is_fake
+    for t in tensors:
+        fake = type(t) is not torch.Tensor and is_fake(t)
+        if fake or t.device.type != "cuda":
+            kind = "fake" if fake else t.device.type
+            raise TypeError(f"kernel {name} launches on CUDA tensors with "
+                            f"data; got a {kind} tensor")
+
+
 def check(err: int, name: str) -> None:
     """Raise if a launch reported a CUDA error."""
     if err != 0:

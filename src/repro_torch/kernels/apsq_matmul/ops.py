@@ -131,6 +131,7 @@ def apsq_matmul_int8(x_codes: torch.Tensor, w_codes: torch.Tensor,
     n_p = int(exps.shape[0])
     if x_codes.device.type == "cpu":
         return ref.apsq_matmul_ref(x_codes, w_codes, exps, n_p=n_p, gs=gs)
+    _build.require_data("apsq_matmul", x_codes, w_codes)
     m, n = x_codes.shape[0], w_codes.shape[1]
     if exps.dim() == 2 and tuple(exps.shape) != (n_p, n):
         raise ValueError(f"exps {tuple(exps.shape)} != [n_p, N]=({n_p}, {n})")
@@ -179,6 +180,7 @@ def apsq_expert_matmul_int8(x_codes: torch.Tensor, w_codes: torch.Tensor,
                          f"[E, n_p, N] for E={e_}, N={n}")
     if x_codes.device.type == "cpu":
         return ref.apsq_expert_matmul_ref(x_codes, w_codes, exps, gs=gs)
+    _build.require_data("apsq_expert_matmul", x_codes, w_codes)
     n_p = int(exps.shape[1])
     gs_eff = min(int(gs), n_p)   # gs >= n_p is PSQ: one group over all tiles
     if gs_eff < 1:
@@ -207,6 +209,7 @@ def baseline_expert_matmul_int8(x_codes: torch.Tensor,
     _check_operands(x_codes, w_codes, experts=True)
     if x_codes.device.type == "cpu":
         return ref.baseline_expert_matmul_ref(x_codes, w_codes)
+    _build.require_data("baseline_expert_matmul", x_codes, w_codes)
     x = x_codes.contiguous()
     w = w_codes.contiguous()
     e_, m, k = x.shape
@@ -228,6 +231,7 @@ def baseline_matmul_int8(x_codes: torch.Tensor,
     _check_operands(x_codes, w_codes)
     if x_codes.device.type == "cpu":
         return ref.baseline_matmul_ref(x_codes, w_codes)
+    _build.require_data("baseline_matmul", x_codes, w_codes)
     x = x_codes.contiguous()
     w = w_codes.contiguous()
     m, k = x.shape

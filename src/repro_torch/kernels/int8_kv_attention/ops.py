@@ -75,6 +75,7 @@ def int8_kv_attention(q: torch.Tensor, k_codes: torch.Tensor,
     if q.device.type == "cpu":
         return ref.int8_kv_attention_ref(q, k_codes, v_codes, k_exp, v_exp,
                                          length)
+    _build.require_data("int8_kv_attention", q, k_codes, v_codes)
     if k_codes.dtype != torch.int8 or v_codes.dtype != torch.int8:
         raise TypeError("KV codes must be int8")
     if hd not in HEAD_DIMS:

@@ -22,7 +22,8 @@ Two axes, both cheap enough to run per candidate:
 ``roundtrip_report`` proves a searched policy is *servable*: calibrate ->
 ``export_quantized`` -> execute through the CUDA kernels vs the torch
 oracle (GEMM-level bit parity on an exported layer + greedy decode parity
-through the dense ``ServingEngine``).  On the CPU only the ``oracle``
+through the dense ``ServingEngine``, or for an encoder-decoder through
+``encode`` + ``decode_step(enc_out=)``).  On the CPU only the ``oracle``
 leg can run: the report names the backends that ran and claims no
 parity it did not run (``bit_equal``, ``serving_parity`` and ``ok`` are
 None there).
@@ -31,6 +32,8 @@ Every entry point that makes tensors takes ``device=`` (``None``: the
 card, ``resolve_device``).
 """
 from __future__ import annotations
+
+import time
 
 import numpy as np
 import torch
@@ -100,8 +103,11 @@ def backend_parity_report(cfg: ModelConfig, m: int = 8, *,
 
     Exports one calibrated [k, k] linear (k = min(d_model, 512)) under
     the cfg's policy and runs it through
-    ``repro_torch.exec.backend_parity_check`` at M = ``m``: parity and
-    wall-clock side by side.  The policy is probed at representative
+    ``repro_torch.exec.backend_parity_check`` at M = ``m``: parity, and
+    each backend's time side by side: ``<backend>_us`` is the integer
+    GEMM alone (the kernel's device time on the card,
+    ``_int_gemm_us``), ``<backend>_gemm_us`` the whole deployed GEMM,
+    eager, on the host's clock (quantize, launch, rescale, dispatch).  The policy is probed at representative
     layer names, preferring a PSUM-quantized resolution (a sweep like
     ``ffn_only`` is checked on the APSQ path it exists to measure)."""
     from repro_torch.core import calibrate_dense, quant_params_init
@@ -129,11 +135,68 @@ def backend_parity_report(cfg: ModelConfig, m: int = 8, *,
     w = (torch.randn((k, k), generator=gen) * 0.05).to(device)
     qp = calibrate_dense(quant_params_init(w, resolved, name=probe), x, w)
     dep, _ = export_quantized({"lin": {"w": w, "qp": qp}})
-    _, times, bit_equal = backend_parity_check(
-        dep["lin"]["qp"], x, backends=_parity_backends(device))
+    dq = dep["lin"]["qp"]
+    _, gemm_us, bit_equal = backend_parity_check(
+        dq, x, backends=_parity_backends(device))
     return {"layer": probe, "shape": [m, k, k],
             "mode": resolved.psum.mode, "gs": resolved.psum.gs,
-            "n_p": resolved.psum.n_p, **_parity_fields(times, bit_equal)}
+            "n_p": resolved.psum.n_p, "backends": list(gemm_us),
+            "bit_equal": bit_equal,
+            **{f"{name}_us": round(_int_gemm_us(dq, x, name), 2)
+               for name in gemm_us},
+            **{f"{name}_gemm_us": round(t, 1)
+               for name, t in gemm_us.items()}}
+
+
+_TIMED_LAUNCHES = 50
+
+
+def _int_gemm_us(dq, x: torch.Tensor, backend: str) -> float:
+    """Microseconds of one call of ``backend``'s integer GEMM alone (the
+    kernel on ``cuda``), on the codes of ``x``: without the quantize and
+    rescale around it, and without the host's dispatch.  On the card,
+    ``_TIMED_LAUNCHES`` calls are captured in one CUDA graph and a replay
+    is timed by CUDA events (the median of three); on the CPU, the host
+    clock over as many calls."""
+    launches = _TIMED_LAUNCHES
+    from repro_torch.core import QuantConfig, psum_group_size
+    from repro_torch.exec import get_backend, quantize_activations
+    be = get_backend(backend)
+    spec = dq.spec or QuantConfig.w8a8()
+    xc = quantize_activations(x, dq.ax_exp, spec.a_bits)
+    gs = 1 if dq.psum_exps is None else psum_group_size(
+        spec, int(dq.psum_exps.shape[0]))
+
+    def run():
+        be.int_gemm(xc, dq.w_codes, dq.psum_exps, gs=gs)
+
+    run()
+    if x.device.type != "cuda":
+        t0 = time.perf_counter()
+        for _ in range(launches):
+            run()
+        return (time.perf_counter() - t0) / launches * 1e6
+    main = torch.cuda.current_stream(x.device)
+    side = torch.cuda.Stream(x.device)
+    side.wait_stream(main)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(side):
+        run()                        # the side stream's allocator warmed
+        with torch.cuda.graph(graph, stream=side):
+            for _ in range(launches):
+                run()
+    main.wait_stream(side)
+    graph.replay()
+    times = []
+    for _ in range(3):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record(main)
+        graph.replay()
+        b.record(main)
+        b.synchronize()
+        times.append(a.elapsed_time(b) * 1e3 / launches)
+    return sorted(times)[1]
 
 
 # ---------------------------------------------------------------------------
@@ -267,6 +330,30 @@ def _find_deployed(tree, require_psum: bool):
     return None
 
 
+def _encdec_greedy(deploy, cfg: ModelConfig, frames: torch.Tensor,
+                   prompt: torch.Tensor, n_new: int, backend: str,
+                   device) -> list:
+    """Greedy tokens of an encoder-decoder (the engines serve
+    decoder-only models): ``encode`` the frames [1, S_enc, d], then
+    ``decode_step(enc_out=)`` over a fresh dense state, the prompt [1, P]
+    a token at a time, then each step's argmax, ``n_new`` tokens (the
+    last prompt step gives the first), as the engines count them."""
+    from repro_torch.models.model import (decode_step, encode,
+                                          init_decode_state)
+    enc = encode(deploy, cfg, frames, backend=backend)
+    P = prompt.shape[1]
+    state = init_decode_state(cfg, 1, P + n_new, device=device)
+    cur, out = prompt[:, :1], []
+    for t in range(P + n_new - 1):
+        logits, state = decode_step(deploy, cfg, state, cur, t, enc_out=enc,
+                                    backend=backend)
+        nxt = logits[:, -1].argmax(-1)
+        if t >= P - 1:
+            out.append(int(nxt[0]))
+        cur = prompt[:, t + 1:t + 2] if t + 1 < P else nxt[:, None]
+    return out
+
+
 @torch.no_grad()
 def roundtrip_report(cfg: ModelConfig, policy, batch: dict, seed: int = 0,
                      max_new_tokens: int = 6, *, device=None) -> dict:
@@ -276,9 +363,12 @@ def roundtrip_report(cfg: ModelConfig, policy, batch: dict, seed: int = 0,
     bit parity on an exported layer at M = 4 (a PSUM-quantized one where
     the policy has one: the APSQ kernel path), (b) greedy decode parity
     through a dense ``ServingEngine`` (max_batch 1, cache 64) pinned to
-    each backend.  ``backends`` names what ran; on the CPU that is the
-    oracle alone, and ``bit_equal``, ``serving_parity`` and ``ok`` are
-    None (not run) rather than a claim.
+    each backend; an encoder-decoder, which the engines refuse, decodes
+    the batch's first frames and prompt through ``encode`` +
+    ``decode_step(enc_out=)`` (``_encdec_greedy``) on each backend.
+    ``backends`` names what ran; on the CPU that is the oracle alone,
+    and ``bit_equal``, ``serving_parity`` and ``ok`` are None (not run)
+    rather than a claim.
     """
     from repro_torch.exec import backend_parity_check
     from repro_torch.models.model import init_lm
@@ -309,6 +399,12 @@ def roundtrip_report(cfg: ModelConfig, policy, batch: dict, seed: int = 0,
     prompt = np.asarray(batch["tokens"][0, :8].cpu()).astype(np.int64)
     decodes = {}
     for backend in backends:
+        if cfg_q.encdec:
+            decodes[backend] = _encdec_greedy(
+                deploy, cfg_q, batch["enc_embeds"][:1].to(device),
+                torch.as_tensor(prompt, device=device)[None],
+                max_new_tokens, backend, device)
+            continue
         eng = ServingEngine(deploy, cfg_q, max_batch=1, cache_len=64,
                             backend=backend)
         done = eng.run([Request(uid=0, tokens=prompt,

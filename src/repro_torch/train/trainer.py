@@ -109,6 +109,50 @@ def value_and_grad(loss_fn, params, batch) -> tuple:
     return loss.detach(), tree_map(lambda _, t: next(it), params)
 
 
+def grad_carry(params, n: int):
+    """The microbatch loop's carry before its first microbatch: None for
+    one microbatch, else float32 zero accumulators ``(loss, grads)``
+    shaped like ``params``."""
+    if n == 1:
+        return None
+    g_acc = tree_map(lambda _, p: torch.zeros(
+        p.shape, dtype=torch.float32, device=p.device), params)
+    return (torch.zeros((), dtype=torch.float32,
+                        device=tree_leaves(g_acc)[0][1].device), g_acc)
+
+
+def microbatch_step(carry, loss_fn, params, mb):
+    """One microbatch's forward and backward, added into ``carry`` (None:
+    its ``(loss, grads)`` become the carry, in the params' dtypes)."""
+    loss, g = value_and_grad(loss_fn, params, mb)
+    if carry is None:
+        return loss, g
+    loss_sum, g_acc = carry
+    for (_, a), (_, b) in zip(tree_leaves(g_acc), tree_leaves(g)):
+        a.add_(b)            # float32 accumulators, our own
+    return loss_sum + loss, g_acc
+
+
+def finish_grads(carry, n: int) -> tuple:
+    """``(loss, grads)`` averaged over ``n`` microbatches."""
+    loss, grads = carry
+    if n == 1:
+        return loss, grads
+    inv = 1.0 / n
+    for _, a in tree_leaves(grads):
+        a.mul_(inv)
+    return loss * inv, grads
+
+
+def update_step(params, opt_state, loss, grads, ocfg: OptimConfig):
+    """The AdamW update (global-norm clip first) from averaged grads;
+    ``(params, opt_state, stats)`` with the loss in ``stats``."""
+    params, opt_state, stats = apply_updates(params, grads, opt_state,
+                                             ocfg, decay_mask(params))
+    stats["loss"] = loss
+    return params, opt_state, stats
+
+
 def make_grads_fn(cfg: ModelConfig, tcfg: TrainConfig, loss_fn=None):
     """(params, batch) -> (loss, grads); microbatched, float32
     accumulation (one microbatch: the grads in the params' dtypes)."""
@@ -116,23 +160,10 @@ def make_grads_fn(cfg: ModelConfig, tcfg: TrainConfig, loss_fn=None):
     n = tcfg.microbatches
 
     def grads_fn(params, batch):
-        if n == 1:
-            return value_and_grad(loss_fn, params, batch)
-        g_acc = tree_map(lambda _, p: torch.zeros(
-            p.shape, dtype=torch.float32, device=p.device), params)
-        acc = [a for _, a in tree_leaves(g_acc)]
-        loss_sum = torch.zeros((), dtype=torch.float32,
-                               device=acc[0].device)
-        for mb in _split_micro(batch, n):
-            loss, g = value_and_grad(loss_fn, params, mb)
-            loss_sum = loss_sum + loss
-            for a, (_, b) in zip(acc, tree_leaves(g)):
-                a.add_(b)            # float32 accumulators, our own
-            del g
-        inv = 1.0 / n
-        for a in acc:
-            a.mul_(inv)
-        return loss_sum * inv, g_acc
+        carry = grad_carry(params, n)
+        for mb in [batch] if n == 1 else _split_micro(batch, n):
+            carry = microbatch_step(carry, loss_fn, params, mb)
+        return finish_grads(carry, n)
 
     return grads_fn
 
@@ -147,11 +178,7 @@ def make_train_step(cfg: ModelConfig, ocfg: OptimConfig, tcfg: TrainConfig,
 
     def train_step(params, opt_state, batch):
         loss, grads = grads_fn(params, batch)
-        mask = decay_mask(params)
-        params, opt_state, stats = apply_updates(params, grads, opt_state,
-                                                 ocfg, mask)
-        stats["loss"] = loss
-        return params, opt_state, stats
+        return update_step(params, opt_state, loss, grads, ocfg)
 
     return train_step
 

@@ -57,6 +57,11 @@ machine without JAX:
   ``int8_kv_attention_f32`` within rtol 2e-5 / atol 2e-6 of their CPU
   versions; ``roundtrip_report`` on ``tinyllama-smoke`` ``ok`` under
   W8A8 and ``mix2_ffn4``.
+* The dry run: the meta-tensor counts of ``tinyllama-smoke``'s prefill,
+  decode and train steps equal the counts of the same steps on the
+  card; ``--backend-parity`` under ``apsq`` corrects the roofline from
+  kernel 1's ``cuda_us``; the search's round trip on ``seamless-smoke``
+  (``encode`` + ``decode_step(enc_out=)``) ``ok`` on the card.
 """
 import numpy as np
 import pytest
@@ -1359,3 +1364,67 @@ def test_roundtrip_report_on_card(no_tf32, preset):
             else ("apsq_matmul", "apsq_matmul_m1"))
     for name in want:
         assert _build.launch_counts.get(name, 0) > 0, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["prefill", "decode", "train"])
+def test_dryrun_meta_counts_equal_a_real_step_on_card(no_tf32, kind):
+    """The dry run's count on meta tensors equals the count of the same
+    step run on the card (``tinyllama-smoke``): FLOPs and bytes exactly,
+    and the peak of live storage."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.launch import dryrun
+    from repro_torch.models.config import ShapeCell
+    cfg = get_smoke("tinyllama-1.1b")
+    cell = ShapeCell(kind, 64, 4, kind)
+    kw = {"microbatches": 2} if kind == "train" else {}
+    meta = dryrun.count_step(dryrun.build_cell(cfg, cell, device="meta",
+                                               **kw))
+    real = dryrun.count_step(dryrun.build_cell(cfg, cell, device=no_tf32,
+                                               **kw))
+    torch.cuda.synchronize()
+    for k in ("flops", "bytes", "peak_bytes", "argument_size_in_bytes"):
+        assert meta[k] == real[k], k
+    assert meta["flops"] > 0
+
+
+@pytest.mark.cuda
+def test_dryrun_backend_roofline_reads_cuda_us(no_tf32):
+    """``--backend-parity`` under ``apsq`` on the card: kernel 1 and the
+    oracle bit-equal at the probe shape, and the corrected terms come
+    from the kernel's measured time (``cuda_us``)."""
+    from repro_torch.launch import dryrun
+    from repro_torch.roofline import gemm_analytic_us
+    _build.reset_launch_counts()
+    r = dryrun.run_cell("tinyllama-1.1b", "decode_32k", quant="apsq",
+                        smoke=True, backend_parity=True, device=no_tf32,
+                        verbose=False)
+    assert r["ok"], r.get("error")
+    bp, br = r["backend_parity"], r["backend_roofline"]
+    assert bp["backends"] == ["oracle", "cuda"] and bp["bit_equal"] is True
+    assert br["probe_backend"] == "cuda"
+    assert br["probe_measured_us"] == round(bp["cuda_us"], 1)
+    assert br["correction"] == bp["cuda_us"] / gemm_analytic_us(
+        *bp["shape"])
+    assert _build.launch_counts.get("apsq_matmul", 0) > 0
+
+
+@pytest.mark.cuda
+def test_encdec_roundtrip_report_on_card(no_tf32):
+    """The search's round trip on ``seamless-smoke`` (an encoder-decoder:
+    ``encode`` + ``decode_step(enc_out=)`` on each backend): GEMM parity
+    bit-equal, the ``oracle`` and ``cuda`` tokens equal, ``ok``."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.quant import policy_presets
+    from repro_torch.search import make_eval_batch, roundtrip_report
+    cfg = get_smoke("seamless-m4t-large-v2")
+    batch = make_eval_batch(cfg, 2, 32, device=no_tf32)
+    _build.reset_launch_counts()
+    rt = roundtrip_report(cfg, policy_presets()["enc_heavy"], batch,
+                          device=no_tf32)
+    assert rt["backends"] == ["oracle", "cuda"]
+    assert rt["gemm_parity"]["bit_equal"] is True
+    assert len(rt["decode"]["cuda"]) == 6
+    assert rt["decode"]["oracle"] == rt["decode"]["cuda"]
+    assert rt["serving_parity"] is True and rt["ok"] is True
+    assert _build.launch_counts.get("apsq_matmul_m1", 0) > 0
