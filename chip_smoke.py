@@ -239,8 +239,32 @@ Phases (each exits non-zero on failure):
              ``decode_step(enc_out=)``, enc_heavy) with equal ``oracle``
              and ``cuda`` tokens.  The phase is the path's zeroed run:
              kernels 1, 2 and 4 must launch.
+  tp_serve   tensor- and expert-parallel serving (``repro_torch.dist``):
+             four ranks spawned on the one card over gloo (NCCL refuses
+             two ranks on one GPU), meshes (2, 2) and (1, 4).  Each rank
+             restores the whole export from disk on the CPU and keeps its
+             slices; each run is held to one rank's engine on the same
+             export: equal greedy tokens, and the ranks' KV pools and
+             exponents gathered over heads equal to one rank's, array
+             for array.  Runs: full-width TinyLlama-1.1B (22 layers,
+             mix2_ffn4; the ``serve`` phase's export when both run, kept
+             on disk under ``_tp_export/``), 8 requests x 16 new tokens
+             at D=2 on the int8 wire (data replica 0) and the fp32 wire
+             (replica 1) at once; its first 2 layers at D=4 (one KV head
+             a rank); 2 layers under PSQ gs = n_p = 8 (K-shards through
+             the W8A8 expert kernel) and under W8A8 (K-shards, int32
+             all-reduce) at D=2; full-width OLMoE-1B-7B (16 layers, the
+             ``moe_serve`` phase's export when both run) expert-parallel
+             at D=2, the CUDA GEMMs with the plain attention as
+             ``moe_serve`` holds it.  A decode step of every dense run
+             moves exactly the bytes ``wire_report`` prices.  Records
+             the transport, per-rank peak memory, launches per kernel
+             and rank (all six must launch), the bytes copied through
+             the host (none) and ``wire_report``'s int8 and fp32 bytes
+             per decode step.  The ranks time-slice one card: their
+             seconds are no speed.
 
-The main path runs in eighteen configurations, each its own path:
+The main path runs in nineteen configurations, each its own path:
 ``serve`` (mix2_ffn4: every layer APSQ), ``w8a8`` (ffn_only: W8A8
 attention projections), ``moe_serve`` (OLMoE, mix2_ffn4), ``moe_w8a8``
 (OLMoE, W8A8), ``load`` (the restored JAX export), ``sc2_serve``,
@@ -249,8 +273,9 @@ serve tails; the training step itself is plain PyTorch and reaches no
 kernel), ``qwen3_2l``, ``rwkv_serve``, ``rg_serve``,
 ``seamless_serve`` (its batched run; its single-stream runs are
 ``seamless_serve/single``), ``vlm_2l``, ``search`` (the search's
-CLI and the full-width round trips) and ``dryrun`` (the backend parity
-probes and the encoder-decoder round trip).  Launch
+CLI and the full-width round trips), ``dryrun`` (the backend parity
+probes and the encoder-decoder round trip) and ``tp_serve`` (every
+rank's runs, summed).  Launch
 counts are zeroed just before each and read just after; every kernel of
 each path must have launched.  The line before the
 last holds the per-kernel record: ``launches`` is the count of the path
@@ -278,7 +303,7 @@ F32_OPS_PER_S = 67e12          # H100 SXM float32 outside the tensor cores
 PHASES = ("build", "kernels", "reference", "serve", "w8a8", "moe_reference",
           "moe_serve", "moe_w8a8", "load", "sc2_serve", "dense_2l", "train",
           "moe_train", "qwen3_2l", "rwkv_serve", "rg_serve", "seamless_serve",
-          "vlm_2l", "search", "dryrun")
+          "vlm_2l", "search", "dryrun", "tp_serve")
 FIXTURE = os.path.join(ROOT, "tests", "fixtures",
                        "jax_export_starcoder2_smoke")
 NO_BATCHED_INT8_MM = ("none: PyTorch has no single call for a batched "
@@ -335,6 +360,7 @@ PATH_KERNELS = {
     "vlm_2l": ("apsq_matmul", "apsq_matmul_m1", "int8_kv_attention"),
     "search": ("apsq_matmul", "apsq_matmul_m1", "baseline_matmul"),
     "dryrun": ("apsq_matmul", "apsq_matmul_m1", "baseline_matmul"),
+    "tp_serve": tuple(SOURCES),
 }
 
 
@@ -1220,6 +1246,7 @@ def phase_serve(torch, np, _build, cfg, dev, profile: bool = False):
     deploy, _ = export_quantized(params)
     sync(torch, dev)
     info["export_s"] = time.perf_counter() - t0
+    info["kept_export_s"] = keep_export("serve", cfg, deploy)
     # single-stream reference for requests 0 and 1 (request 0 probes EOS)
     single, step = single_stream_check(torch, deploy, cfg, reqs[:2], kw,
                                        dev, probe_eos=True)
@@ -1354,6 +1381,7 @@ def phase_moe_serve(torch, np, _build, cfg, dev, profile: bool = False):
     sync(torch, dev)
     info["export_s"] = time.perf_counter() - t0
     del params                          # the float expert banks go
+    info["kept_export_s"] = keep_export("moe_serve", cfg, deploy)
     banks = [r for r in report.values() if "n_experts" in r]
     info["expert_banks"] = {
         "count": sum(r["count"] for r in banks),
@@ -2879,6 +2907,302 @@ def phase_dryrun(torch, np, _build, cfg, dev):
 
 
 # ---------------------------------------------------------------------------
+# Phase: tensor- and expert-parallel serving, ranks sharing the card
+# ---------------------------------------------------------------------------
+
+TP_EXPORTS = os.path.join(ROOT, "_tp_export")   # git-ignored, removed after
+KEEP_EXPORTS: set = set()   # exports serve/moe_serve save for tp_serve
+TP_WORLD = 4
+TP_CUT = 2                  # layers of the D=4, PSQ and W8A8 runs
+
+
+def keep_export(name: str, cfg, deploy):
+    """Save an export for the tp_serve phase (when it will run), so its
+    ranks restore it from disk as a deployment would; the seconds it
+    took, or None."""
+    if name not in KEEP_EXPORTS:
+        return None
+    from repro_torch.checkpoint import save
+    t0 = time.perf_counter()
+    save(os.path.join(TP_EXPORTS, name), 0, deploy, extra={"arch": cfg.name})
+    return time.perf_counter() - t0
+
+
+def cut_units(tree: dict, n: int) -> dict:
+    """The tree of the first ``n`` layers (one layer a unit)."""
+    return {**tree, "units": {f"u{i}": tree["units"][f"u{i}"]
+                              for i in range(n)}}
+
+
+def tp_rank(rank: int, world: int, init: str, job_path: str,
+            out_dir: str) -> None:
+    """One rank of the tp_serve phase, a spawned process on the one card:
+    every run of the job on its mesh, each export restored from disk on
+    the CPU and cut to this rank's slices (``shard_deployed``)."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.checkpoint import restore
+    from repro_torch.dist import tp
+    from repro_torch.kernels import _build
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.models import decode_step_paged
+    from repro_torch.serving import PagedServingEngine, Request
+
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=init, rank=rank,
+                            world_size=world,
+                            timeout=datetime.timedelta(seconds=300))
+    job = torch.load(job_path, weights_only=False)
+    meshes = {2: make_smoke_mesh((world // 2, 2), device=job["device"]),
+              world: make_smoke_mesh((1, world), device=job["device"])}
+    out = {"mesh": {d: {"transport": m.backend, "shared_device":
+                        m.shared_device, "shape": m.shape,
+                        "device": str(m.device)} for d, m in meshes.items()}}
+    restored = {}
+    for run in job["runs"]:
+        mesh = meshes[run["d"]]
+        wires = [w for w, replica in run["wires"]
+                 if replica is None or replica == mesh.coords["data"]]
+        if not wires:
+            continue
+        if run["export"] not in restored:
+            restored[run["export"]] = restore(run["export"], device="cpu")[0]
+        deploy = restored[run["export"]]
+        if run["layers"]:
+            deploy = cut_units(deploy, run["layers"])
+        cfg = run["cfg"]
+        backend = tp_backend(run, mesh.device)
+        for wire in wires:
+            eng = PagedServingEngine(deploy, cfg, backend=backend, mesh=mesh,
+                                     wire=wire, **run["kw"])
+            sync(torch, mesh.device)
+            _build.reset_launch_counts()
+            mesh.wire_bytes.clear()
+            t0 = time.perf_counter()
+            done = eng.run([Request(uid=u, tokens=t, max_new_tokens=n)
+                            for u, t, n in run["reqs"]])
+            sync(torch, mesh.device)
+            rec = {"serve_s": time.perf_counter() - t0,
+                   "tokens": {r.uid: r.out for r in done},
+                   "launches": dict(_build.launch_counts),
+                   "wire_bytes": dict(mesh.wire_bytes)}
+            state = tp.gather_paged_state(eng.state, cfg, mesh)
+            if mesh.coords["model"] == 0:
+                rec["state"] = tree_cpu(state)
+            # one decode step at the engine's B rows moves what
+            # wire_report prices at m = B (the dense runs)
+            b = run["kw"]["max_batch"]
+            mesh.wire_bytes.clear()
+            with torch.no_grad():
+                decode_step_paged(
+                    eng.params, cfg, eng.state,
+                    torch.zeros((b, 1), dtype=torch.int32, device=mesh.device),
+                    torch.zeros(b, dtype=torch.int32, device=mesh.device),
+                    torch.ones((b, 1), dtype=torch.int32, device=mesh.device),
+                    backend=eng.backend)
+            rec["step_wire_bytes"] = sum(mesh.wire_bytes.values())
+            rec["wire_report"] = {
+                f"m{m}": tp.wire_report(eng.shard_plan, m=m)["total"]
+                for m in (1, b)}
+            rec["axes"] = sorted({f"{p.kind}:{p.axis}:{p.mode}"
+                                  for p in eng.shard_plan.values()})
+            out[(run["name"], wire)] = rec
+            del eng, state
+    if mesh.device.type == "cuda":
+        out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def tp_backend(run: dict, dev):
+    """A run's inner backend: the CUDA GEMMs with the plain attention
+    (OLMoE, as moe_serve holds it), else ``auto`` (on the CPU, where this
+    phase is rehearsed, ``auto`` is the plain versions)."""
+    if run["plain_attention"] and dev.type == "cuda":
+        return gemm_kernels_plain_attention()
+    return "auto"
+
+
+def tree_cpu(tree):
+    from repro_torch.models.model import tree_map
+    return tree_map(lambda _, a: a.cpu(), tree)
+
+
+def tp_export(torch, np, name: str, cfg, dev, calib_rows: int = 4):
+    """Path of ``name``'s export on disk: the one serve/moe_serve kept,
+    else made here (init from seed 0, calibrate, export, save)."""
+    from repro_torch.models import init_lm
+    from repro_torch.quant import calibrate_model, export_quantized
+    path = os.path.join(TP_EXPORTS, name)
+    if not os.path.isdir(path):
+        params = init_lm(cfg, seed=0, device=dev)
+        params = calibrate_model(params, cfg, {
+            "tokens": np.random.default_rng(31).integers(
+                0, cfg.vocab, size=(calib_rows, 64))})
+        deploy, _ = export_quantized(params)
+        del params
+        KEEP_EXPORTS.add(name)
+        keep_export(name, cfg, deploy)
+        del deploy
+    return path
+
+
+def phase_tp_serve(torch, np, _build, configs, dev):
+    """Tensor- and expert-parallel serving over ``torch.distributed``:
+    ranks spawned on the one card (gloo: NCCL refuses two ranks on one
+    GPU), each restoring the whole export from disk and keeping its
+    slices, held to one rank's engine on the same export: equal greedy
+    tokens, and the ranks' pools and exponents gathered over heads
+    equal to one rank's, array for array."""
+    import shutil
+
+    import torch.multiprocessing as mp
+    from repro_torch.checkpoint import restore
+    from repro_torch.core import QuantConfig
+    from repro_torch.quant import policy_presets
+    from repro_torch.serving import PagedServingEngine, Request
+    tiny, olmoe = configs
+    mix = policy_presets()["mix2_ffn4"]
+    rng = np.random.default_rng(41)
+    t_phase = time.perf_counter()
+    dense = tiny.with_quant(mix)
+    cut = tiny.scaled(n_layers=TP_CUT)
+    moe = olmoe.with_quant(mix)
+    exports = {"serve": tp_export(torch, np, "serve", dense, dev),
+               "moe_serve": tp_export(torch, np, "moe_serve", moe, dev)}
+    for name, quant in (("psq", QuantConfig.apsq(gs=8, n_p=8)),
+                        ("w8a8", QuantConfig.w8a8())):
+        exports[name] = tp_export(torch, np, f"tp_{name}",
+                                  cut.with_quant(quant), dev, calib_rows=2)
+    t_exports = time.perf_counter() - t_phase
+
+    def reqs(n, lo_p, hi_p, new):
+        return [(r.uid, r.tokens, r.max_new_tokens) for r in make_requests(
+            np, rng, n, tiny.vocab, lo_p, hi_p, new, new, Request)]
+
+    dense_kw = dict(max_batch=8, page_size=16, prefill_chunk=16,
+                    decode_horizon=8, max_pages_per_slot=5, n_pages=41)
+    dense_reqs = reqs(8, 5, 60, 16)
+    cut_reqs = reqs(4, 5, 40, 8)
+    cut_kw = dict(dense_kw, max_batch=4, n_pages=21)
+    # wires: (wire, data replica of the (2, 2) mesh that serves it, or
+    # None: every rank, D=4); the two replicas serve at the same time
+    runs = [
+        dict(name="tinyllama_2l_d4", d=TP_WORLD, export=exports["serve"],
+             layers=TP_CUT, cfg=dense.scaled(n_layers=TP_CUT),
+             wires=(("int8", None),), kw=cut_kw, reqs=cut_reqs,
+             plain_attention=False),
+        dict(name="tinyllama_22l_d2", d=2, export=exports["serve"],
+             layers=0, cfg=dense, wires=(("int8", 0), ("fp32", 1)),
+             kw=dense_kw, reqs=dense_reqs, plain_attention=False),
+        dict(name="psq_2l_d2", d=2, export=exports["psq"], layers=0,
+             cfg=cut.with_quant(QuantConfig.apsq(gs=8, n_p=8)),
+             wires=(("int8", 0), ("fp32", 1)), kw=cut_kw, reqs=cut_reqs,
+             plain_attention=False),
+        dict(name="w8a8_2l_d2", d=2, export=exports["w8a8"], layers=0,
+             cfg=cut.with_quant(QuantConfig.w8a8()), wires=(("int8", 1),),
+             kw=cut_kw, reqs=cut_reqs, plain_attention=False),
+        dict(name="olmoe_16l_d2", d=2, export=exports["moe_serve"],
+             layers=0, cfg=moe, wires=(("int8", 0),),
+             kw=dict(dense_kw, max_batch=4, n_pages=21),
+             reqs=[(u, t % olmoe.vocab, n) for u, t, n in cut_reqs],
+             plain_attention=True),
+    ]
+    tmp = os.path.join(TP_EXPORTS, "world")
+    os.makedirs(tmp, exist_ok=True)
+    job_path = os.path.join(tmp, "job.pt")
+    torch.save({"runs": runs,
+                "device": None if dev.type == "cuda" else str(dev)}, job_path)
+    info = {"world": TP_WORLD, "exports_s": t_exports,
+            "cut": f"D=4, PSQ and W8A8 runs: {TP_CUT} of 22 layers "
+                   "(phase time)"}
+    t0 = time.perf_counter()
+    ctx = mp.start_processes(
+        tp_rank, args=(TP_WORLD, "file://" + os.path.join(tmp, "rdv"),
+                       job_path, tmp), nprocs=TP_WORLD, join=False,
+        start_method="spawn")
+    # one rank's engines on the same exports, while the ranks serve
+    one = {}
+    try:
+        for run in runs:
+            deploy = restore(run["export"], device=dev)[0]
+            if run["layers"]:
+                deploy = cut_units(deploy, run["layers"])
+            eng = PagedServingEngine(deploy, run["cfg"],
+                                     backend=tp_backend(run, dev), **run["kw"])
+            done = eng.run([Request(uid=u, tokens=t, max_new_tokens=n)
+                            for u, t, n in run["reqs"]])
+            one[run["name"]] = ({r.uid: r.out for r in done},
+                                tree_cpu(eng.state))
+            del eng, deploy
+    finally:
+        while not ctx.join():
+            pass
+    info["world_s"] = time.perf_counter() - t0
+    ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False)
+             for r in range(TP_WORLD)]
+    shutil.rmtree(TP_EXPORTS)
+    KEEP_EXPORTS.clear()
+
+    from repro_torch.models.model import tree_leaves
+    problems = []
+    m = ranks[0]["mesh"]
+    info["transport"] = m[2]["transport"]
+    info["ranks_share_one_card"] = m[2]["shared_device"]
+    if m[2]["transport"] != "gloo" or (dev.type == "cuda"
+                                       and not m[2]["shared_device"]):
+        problems.append(f"mesh: {m}")
+    info["peak_mem_gb_by_rank"] = [r.get("peak_mem_gb") for r in ranks]
+    launches = {k: 0 for k in SOURCES}
+    info["runs"], info["wire"] = {}, {}
+    for run in runs:
+        want_tokens, want_state = one[run["name"]]
+        for wire, _ in run["wires"]:
+            key = (run["name"], wire)
+            recs = [r[key] for r in ranks if key in r]
+            rec = {"ranks": len(recs), "serve_s": [r["serve_s"] for r in recs],
+                   "tokens_equal": all(r["tokens"] == want_tokens
+                                       for r in recs),
+                   "wire_bytes": recs[0]["wire_bytes"],
+                   "step_wire_bytes": recs[0]["step_wire_bytes"],
+                   "wire_report": recs[0]["wire_report"],
+                   "axes": recs[0]["axes"],
+                   "launches_by_rank": [r["launches"] for r in recs]}
+            got = dict(tree_leaves(next(r["state"] for r in recs
+                                        if "state" in r)))
+            want = dict(tree_leaves(want_state))
+            rec["state_equal"] = (got.keys() == want.keys() and all(
+                torch.equal(got[k], want[k]) for k in want))
+            if len(recs) != run["d"] or not rec["tokens_equal"] \
+                    or not rec["state_equal"]:
+                problems.append(f"{key}: {len(recs)} ranks, tokens equal "
+                                f"{rec['tokens_equal']}, state equal "
+                                f"{rec['state_equal']}")
+            b = run["kw"]["max_batch"]
+            if run["name"] != "olmoe_16l_d2" and (
+                    rec["step_wire_bytes"]
+                    != rec["wire_report"][f"m{b}"][wire]):
+                problems.append(f"{key}: a decode step moved "
+                                f"{rec['step_wire_bytes']} bytes, "
+                                f"wire_report prices {rec['wire_report']}")
+            for r in recs:
+                for k, c in r["launches"].items():
+                    launches[k] += c
+            info["runs"][f"{run['name']}/{wire}"] = rec
+            info["wire"][f"{run['name']}/{wire}"] = {
+                "decode_step_measured": rec["step_wire_bytes"],
+                **rec["wire_report"]}
+    info["launches"] = launches
+    info["host_copied_bytes"] = 0   # gloo takes the CUDA tensors as they are
+    info["seconds"] = time.perf_counter() - t_phase
+    problems += missing_launches("tp_serve", launches)
+    return info, problems
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -2924,6 +3248,8 @@ def main() -> int:
               "cuda": torch.version.cuda}
     records: dict = {}
     launches: dict = {}     # path -> its own zeroed run's counts
+    if "tp_serve" in phases:
+        KEEP_EXPORTS.update(("serve", "moe_serve"))
     t_all = time.perf_counter()
     for phase in ["build"] + [p for p in phases if p != "build"]:
         t0 = time.perf_counter()
@@ -3010,6 +3336,10 @@ def main() -> int:
         elif phase == "dryrun":
             info, problems = phase_dryrun(torch, np, _build,
                                           tinyllama_1_1b.CONFIG, cuda)
+        elif phase == "tp_serve":
+            info, problems = phase_tp_serve(
+                torch, np, _build,
+                (tinyllama_1_1b.CONFIG, olmoe_1b_7b.CONFIG), cuda)
         if "launches" in info:
             launches[phase] = info["launches"]
         launches.update(info.pop("paths", {}))
@@ -3018,7 +3348,8 @@ def main() -> int:
         detail[phase] = info
         short = {k: v for k, v in info.items()
                  if k not in ("gemm", "expert_gemm", "attention", "ptxas",
-                              "profile", "grad_norms", "forward_agreement")}
+                              "profile", "grad_norms", "forward_agreement",
+                              "runs")}
         emit({"phase": phase, "ok": not problems, "seconds": round(dt, 3),
               "card": card, **short})
         if problems:

@@ -19,7 +19,10 @@ Backends:
     CUDA tensors only and raises for others;
   * ``auto``   — ``cuda`` for CUDA tensors, ``oracle`` for CPU tensors
     (the default).  There is no fallback: a CUDA tensor whose kernel
-    fails to build or launch raises.
+    fails to build or launch raises;
+  * ``sharded`` — ``ShardedBackend``: a leaf backend on each rank of a
+    mesh, combined by ``repro_torch.dist.tp``'s collectives (meshless,
+    as registered, it delegates).
 
 ``execute_gemm`` routes ``psum_exps is None`` to the baseline W8A8 kernel
 and M == 1 to the m=1 decode kernel, as the JAX ops do;
@@ -50,6 +53,15 @@ class ExecBackend:
 
     def kv_attention(self, q, k_codes, v_codes, k_exp, v_exp, length):
         raise NotImplementedError
+
+    def local_heads(self, q, k, v):
+        """The heads of q [..., Hq, hd] and of the new K/V rows this
+        process attends and caches: all of them, but on a mesh."""
+        return q, k, v
+
+    def gather_heads(self, out, n_heads: int):
+        """Attention output of ``local_heads``' heads -> all ``n_heads``."""
+        return out
 
     def __repr__(self):
         return f"<{type(self).__name__} {self.name!r}>"
@@ -137,6 +149,76 @@ class AutoBackend(ExecBackend):
                                           length)
 
 
+class ShardedBackend(ExecBackend):
+    """Mesh-parallel integer execution: the ``inner`` leaf backend on
+    each rank's shard, INT8-on-the-wire combines between ranks (port of
+    the reference's ``ShardedBackend``).
+
+    The shard axis of each GEMM is the plan ``dist.tp.shard_deployed``
+    placed its codes with: PSQ layers K-shard by whole PSUM tiles (int32
+    reduce-scatter + int8 code gather), APSQ layers shard N (int8 code
+    gather: the output is a code times the static ``2^e_last``), W8A8
+    K-shards with an int32 all-reduce, MoE expert banks run expert-
+    parallel with an int8 code gather, and attention splits heads
+    (``local_heads`` / ``gather_heads``; the attention itself then needs
+    no collective, so ``kv_attention`` runs ``inner`` on the rank's
+    heads).  Every path is bit-exact to ``inner`` on one rank;
+    ``wire="fp32"`` swaps the int8 collectives for 4-byte gathers.
+
+    The registered ``backend="sharded"`` instance has no mesh and
+    delegates to ``auto``; pass ``mesh=`` to ``PagedServingEngine``
+    (which wraps its backend) for multi-rank serving.
+    """
+
+    name = "sharded"
+
+    def __init__(self, mesh=None, inner="auto", *,
+                 model_axis: str = "model", wire: str = "int8"):
+        if wire not in ("int8", "fp32"):
+            raise ValueError(f"wire must be 'int8' or 'fp32', got {wire!r}")
+        self.mesh = mesh
+        self.inner = inner
+        self.model_axis = model_axis
+        self.wire = wire
+
+    def _leaf(self) -> ExecBackend:
+        return get_backend(self.inner)
+
+    def int_gemm(self, x_codes, w_codes, psum_exps, *, gs):
+        if self.mesh is None:
+            return self._leaf().int_gemm(x_codes, w_codes, psum_exps, gs=gs)
+        from repro_torch.dist.tp import sharded_int_gemm  # lazy: dist
+        return sharded_int_gemm(self.mesh, self._leaf(), x_codes, w_codes,
+                                psum_exps, gs=gs, model_axis=self.model_axis,
+                                wire=self.wire)
+
+    def int_expert_gemm(self, x_codes, w_codes, psum_exps, *, gs):
+        if self.mesh is None:
+            return self._leaf().int_expert_gemm(x_codes, w_codes, psum_exps,
+                                                gs=gs)
+        from repro_torch.dist.tp import sharded_int_expert_gemm
+        return sharded_int_expert_gemm(
+            self.mesh, self._leaf(), x_codes, w_codes, psum_exps, gs=gs,
+            model_axis=self.model_axis, wire=self.wire)
+
+    def kv_attention(self, q, k_codes, v_codes, k_exp, v_exp, length):
+        return self._leaf().kv_attention(q, k_codes, v_codes, k_exp, v_exp,
+                                         length)
+
+    def local_heads(self, q, k, v):
+        if self.mesh is None:
+            return q, k, v
+        from repro_torch.dist.tp import split_heads
+        return split_heads(self.mesh, q, k, v, model_axis=self.model_axis)
+
+    def gather_heads(self, out, n_heads: int):
+        if self.mesh is None:
+            return out
+        from repro_torch.dist.tp import gather_heads
+        return gather_heads(self.mesh, out, n_heads,
+                            model_axis=self.model_axis)
+
+
 _REGISTRY: dict = {}
 
 
@@ -147,6 +229,7 @@ def register_backend(name: str, backend: ExecBackend) -> None:
 register_backend("oracle", OracleBackend())
 register_backend("cuda", CudaBackend())
 register_backend("auto", AutoBackend())
+register_backend("sharded", ShardedBackend())
 
 DEFAULT_BACKEND = "auto"
 
@@ -187,7 +270,7 @@ def execute_gemm(dq: DeployedQuantState, x: torch.Tensor, *,
     """
     backend = get_backend(backend)
     spec = dq.spec or QuantConfig.w8a8()
-    k = dq.w_codes.shape[-2]
+    k = x.shape[-1]            # a K-sharded rank's codes hold a K span
     out_shape = tuple(x.shape[:-1]) + tuple(dq.out_dims)
     xc = quantize_activations(x.reshape(-1, k), dq.ax_exp, spec.a_bits)
     gs = 1
@@ -248,8 +331,8 @@ def execute_expert_gemm(dq: DeployedQuantState, x: torch.Tensor, *,
     """
     backend = get_backend(backend)
     spec = dq.spec or QuantConfig.w8a8()
-    n_exp = int(dq.w_codes.shape[0])
-    k = dq.w_codes.shape[-2]
+    n_exp = int(dq.ax_exp.shape[0])   # an expert-parallel rank's codes
+    k = x.shape[-1]                    # hold E/D experts
     out_shape = tuple(x.shape[:-1]) + tuple(dq.out_dims)
     ax = dq.ax_exp.reshape(n_exp, 1, 1)
     xc = quantize_activations(x.reshape(n_exp, -1, k), ax, spec.a_bits)

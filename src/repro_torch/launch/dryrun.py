@@ -456,7 +456,8 @@ def main(argv=None) -> int:
     ap.add_argument("--arch", default="all", help="arch id or 'all'")
     ap.add_argument("--cell", default="all", help="shape cell or 'all'")
     ap.add_argument("--mesh", default="single", choices=("single",),
-                    help="one device (the meshes wait for dist)")
+                    help="one device (the meshes wait for the dist "
+                         "training slice)")
     ap.add_argument("--quant", default="none",
                     choices=("none", "w8a8", "psq", "apsq"))
     ap.add_argument("--quant-policy", default=None,
@@ -478,8 +479,8 @@ def main(argv=None) -> int:
     if args.compress:
         raise NotImplementedError(
             "--compress is the multi-pod INT8 gradient compression of "
-            "repro.dist, which the port has not ported (ROADMAP queue 1, "
-            "dist)")
+            "repro.dist, which waits for the port's dist training slice "
+            "(ROADMAP queue 1)")
 
     quants = [(args.quant, args.quant)]
     if args.quant_policy is not None:

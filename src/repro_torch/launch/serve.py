@@ -10,10 +10,22 @@ kind, sliding-window attention included; ``--engine paged`` serves
 through the paged INT8 KV cache (``PagedServingEngine``).
 ``--exported`` calibrates and exports to INT8 codes first, so the
 projections run on the APSQ kernels.  Runs on the card unless
-``--device cpu``; the JAX launcher's ``--mesh`` and ``--wire`` are
-multi-device and not ported.  For example::
+``--device cpu``.  For example::
 
     python -m repro_torch.launch.serve --arch recurrentgemma-2b --exported
+
+``--mesh SHAPE`` (``1xD``, data x model, or ``PxDxM``) serves across D
+ranks of the model axis (``repro_torch.dist.tp``) and implies
+``--engine paged --exported``; ``--wire`` picks the collectives' payload.
+Start one process per rank::
+
+    torchrun --standalone --nproc-per-node 2 -m repro_torch.launch.serve \
+        --arch tinyllama-1.1b --mesh 1x2
+
+Rank r runs on ``cuda:(LOCAL_RANK % device_count)`` (ranks may share a
+card; the collectives then go over gloo), builds and exports the whole
+model from ``--seed`` and keeps its slices.  Only rank 0 prints results,
+after checking that every rank generated the same tokens.
 """
 from __future__ import annotations
 
@@ -41,6 +53,15 @@ def parser() -> argparse.ArgumentParser:
                          "paged engine only")
     ap.add_argument("--backend", default="auto",
                     help="exec backend for integer ops: auto|oracle|cuda")
+    ap.add_argument("--mesh", default=None, metavar="SHAPE",
+                    help="serve across a mesh of torch.distributed ranks, "
+                         "e.g. '1x2' (data x model) or '2x1x2' (pod x "
+                         "data x model); implies --engine paged "
+                         "--exported; the model axis shards INT8 code "
+                         "banks and KV head pools")
+    ap.add_argument("--wire", choices=("int8", "fp32"), default="int8",
+                    help="collective payload for sharded serving: int8 "
+                         "codes (default) or 4-byte words (same results)")
     ap.add_argument("--exported", action="store_true",
                     help="calibrate + export to INT8 codes and serve "
                          "through the integer kernel path")
@@ -49,6 +70,10 @@ def parser() -> argparse.ArgumentParser:
                     help="torch device (default: the card; 'cpu' to run "
                          "on the CPU)")
     return ap
+
+
+def _quiet(*args, **kw) -> None:
+    """``print`` of the ranks past 0: only rank 0 reports."""
 
 
 def main(argv=None) -> list:
@@ -64,12 +89,27 @@ def main(argv=None) -> list:
         raise SystemExit("enc-dec serving requires encoder inputs: decode "
                          "through repro_torch.models.decode_step(enc_out="
                          "encode(...)) for seamless")
+    mesh, device, say = None, args.device, print
+    if args.mesh:
+        import torch.distributed as dist
+        from repro_torch.launch.mesh import make_smoke_mesh
+        owns_world = not dist.is_initialized()
+        shape = tuple(int(s) for s in args.mesh.lower().split("x"))
+        axes = (("pod", "data", "model") if len(shape) == 3
+                else ("data", "model"))
+        mesh = make_smoke_mesh(shape, axes, device=args.device)
+        device = mesh.device
+        say = print if mesh.rank == 0 else _quiet
+        args.engine, args.exported = "paged", True
+        say(f"[serve] mesh {mesh.shape} wire={args.wire} transport="
+            f"{mesh.backend} on {device}"
+            + (" (the ranks share this GPU)" if mesh.shared_device else ""))
     if args.exported and cfg.policy is None:
         # integer serving needs quantizer state: the paper's APSQ preset
         cfg = cfg.with_quant(QuantConfig.apsq(gs=2, n_p=4))
-        print(f"[serve] {args.arch} has quant disabled -> "
-              f"applying apsq(gs=2, n_p=4) for --exported")
-    params = init_lm(cfg, seed=args.seed, device=args.device)
+        say(f"[serve] {args.arch} has quant disabled -> "
+            f"applying apsq(gs=2, n_p=4) for --exported")
+    params = init_lm(cfg, seed=args.seed, device=device)
     if args.exported:
         from repro_torch.quant import calibrate_model
         tok = np.random.default_rng(args.seed).integers(0, cfg.vocab,
@@ -87,7 +127,8 @@ def main(argv=None) -> list:
         n_pages = args.cache_len // args.page_size * args.max_batch + 1
         kw = dict(max_batch=args.max_batch, page_size=args.page_size,
                   n_pages=n_pages, backend=args.backend,
-                  decode_horizon=args.decode_horizon)
+                  decode_horizon=args.decode_horizon, mesh=mesh,
+                  wire=args.wire)
         cls = PagedServingEngine
     else:
         kw = dict(max_batch=args.max_batch, cache_len=args.cache_len,
@@ -98,11 +139,20 @@ def main(argv=None) -> list:
     t0 = time.perf_counter()
     done = engine.run(reqs)
     dt = time.perf_counter() - t0
+    if mesh is not None:
+        outs = sorted((r.uid, r.out) for r in done)
+        every = [None] * dist.get_world_size()
+        dist.all_gather_object(every, outs)
+        if any(o != outs for o in every):
+            raise RuntimeError("the ranks generated different tokens")
+        if owns_world:
+            dist.destroy_process_group()
     toks = sum(len(r.out) for r in done)
-    print(f"[serve] {len(done)} requests, {toks} tokens in {dt:.2f}s "
-          f"({toks / dt:.1f} tok/s)")
+    rate = ("" if mesh is not None and mesh.shared_device   # time-sliced
+            else f" ({toks / dt:.1f} tok/s)")
+    say(f"[serve] {len(done)} requests, {toks} tokens in {dt:.2f}s{rate}")
     for r in done[:4]:
-        print(f"  req {r.uid}: prompt[{len(r.tokens)}] -> {r.out}")
+        say(f"  req {r.uid}: prompt[{len(r.tokens)}] -> {r.out}")
     return done
 
 

@@ -312,6 +312,15 @@ class PagedServingEngine(_Engine):
     ``greedy`` / ``temperature`` / ``seed``.  Full attention only: a
     ``local`` layer or a softcap is refused, as in the reference (serve
     those on ``ServingEngine``).
+
+    ``mesh`` (``launch.mesh.make_smoke_mesh``) serves across the ranks
+    of its ``model`` axis: the backend is wrapped in ``ShardedBackend``
+    (``wire`` "int8" or "fp32"), the rank keeps its slices of the params
+    (``dist.tp.shard_deployed``, from the whole export) and of the KV
+    pools and exponents (``shard_paged_state``), and ``shard_plan``
+    holds the ``{name: LayerPlan}`` report.  Every rank runs the same
+    scheduler over the same requests and takes the same decisions: its
+    tokens come from logits that the collectives make equal everywhere.
     """
 
     def __init__(self, params, cfg: ModelConfig, *, max_batch: int = 8,
@@ -320,15 +329,27 @@ class PagedServingEngine(_Engine):
                  prefill_chunk: int = 16,
                  prefill_token_budget: int | None = None,
                  decode_horizon: int = 8, greedy: bool = True,
-                 temperature: float = 1.0, seed: int = 0, backend="auto"):
+                 temperature: float = 1.0, seed: int = 0, backend="auto",
+                 mesh=None, wire: str = "int8"):
         from .scheduler import Scheduler
         if "local" in cfg.block_pattern or cfg.softcap:
             raise NotImplementedError(
                 "paged serving covers full-attention (+ recurrent) "
                 "layers only — no sliding-window / softcap yet")
+        self.mesh = mesh
+        self.shard_plan = None
+        if mesh is not None:
+            from repro_torch.dist.tp import shard_deployed
+            params, self.shard_plan = shard_deployed(params, mesh)
         super().__init__(params, cfg, decode_horizon=decode_horizon,
                          greedy=greedy, temperature=temperature, seed=seed,
                          backend=backend)
+        if mesh is not None:
+            from repro_torch.exec import ShardedBackend
+            inner = (self.backend.inner
+                     if isinstance(self.backend, ShardedBackend)
+                     else self.backend)
+            self.backend = ShardedBackend(mesh=mesh, inner=inner, wire=wire)
         self.max_batch = max_batch
         self.page_size = page_size
         self.prefill_chunk = max(int(prefill_chunk), 1)
@@ -339,13 +360,18 @@ class PagedServingEngine(_Engine):
                                              page_size=page_size,
                                              n_pages=n_pages,
                                              device=self.device)
+        fresh = init_paged_decode_state(cfg, 1, page_size=page_size,
+                                        n_pages=1, device=self.device)
+        if mesh is not None:
+            from repro_torch.dist.tp import shard_paged_state
+            self.state, attn_plans = shard_paged_state(self.state, cfg, mesh)
+            fresh, _ = shard_paged_state(fresh, cfg, mesh)
+            self.shard_plan.update(attn_plans)
         self._axes = paged_state_axes(self.state)
         # a newly admitted slot's per-slot leaves (running exponents at
         # EXP_FLOOR, recurrent states at zeros); None where shared
-        self._fresh = tree_map(
-            lambda _, fr, ax: None if ax == -1 else fr,
-            init_paged_decode_state(cfg, 1, page_size=page_size, n_pages=1,
-                                    device=self.device), self._axes)
+        self._fresh = tree_map(lambda _, fr, ax: None if ax == -1 else fr,
+                               fresh, self._axes)
         self.sched = Scheduler(max_slots=max_batch, n_pages=n_pages,
                                page_size=page_size,
                                max_pages_per_slot=max_pages_per_slot,

@@ -118,8 +118,13 @@ def _update_pool_chunk(pages, exp, x_new, pos, page_table):
 def paged_update_and_attend(cache: dict, q, k_new, v_new, pos, page_table,
                             *, backend=None):
     """One decode step: write then attend.  q [B, Hq, hd]; k_new/v_new
-    [B, 1, Hkv, hd] (roped); pos [B] (position written)."""
-    from repro_torch.exec import execute_kv_attention
+    [B, 1, Hkv, hd] (roped); pos [B] (position written).  On a mesh the
+    backend keeps this rank's heads of the new rows (its pools hold only
+    those) and gathers every head's output at the end."""
+    from repro_torch.exec import execute_kv_attention, get_backend
+    backend = get_backend(backend)
+    n_heads = q.shape[-2]
+    q, k_new, v_new = backend.local_heads(q, k_new, v_new)
     pos = torch.as_tensor(pos, device=q.device).to(torch.int32)
     k_pages, k_exp, gk = _update_pool(cache["k_pages"], cache["k_exp"],
                                       k_new, pos, page_table)
@@ -130,8 +135,9 @@ def paged_update_and_attend(cache: dict, q, k_new, v_new, pos, page_table,
     v_seq = gv.reshape(b, n_max * page_size, *gv.shape[3:])
     out = execute_kv_attention(q, k_seq, v_seq, k_exp, v_exp, pos + 1,
                                backend=backend)
-    return out, {"k_pages": k_pages, "v_pages": v_pages,
-                 "k_exp": k_exp, "v_exp": v_exp}
+    return backend.gather_heads(out, n_heads), {
+        "k_pages": k_pages, "v_pages": v_pages, "k_exp": k_exp,
+        "v_exp": v_exp}
 
 
 def paged_prefill_chunk_update_and_attend(cache: dict, q, k_new, v_new, pos,
@@ -142,9 +148,14 @@ def paged_prefill_chunk_update_and_attend(cache: dict, q, k_new, v_new, pos,
     first position.  Stable regime (the exponents after the chunk's first
     token already cover the chunk): one chunked attention call.  Replay
     regime (a later token bumped an exponent, so earlier rows saw finer
-    codes): replay the per-row snapshots from the pre-chunk pools.
+    codes): replay the per-row snapshots from the pre-chunk pools.  On a
+    mesh each rank takes the regime of its own heads (the two give the
+    same values) and the heads are gathered once, after either.
     """
-    from repro_torch.exec import execute_kv_attention
+    from repro_torch.exec import execute_kv_attention, get_backend
+    backend = get_backend(backend)
+    n_heads = q.shape[-2]
+    q, k_new, v_new = backend.local_heads(q, k_new, v_new)
     pos = torch.as_tensor(pos, device=q.device).to(torch.int32)
     chunk = q.shape[1]
     page_size = cache["k_pages"].shape[1]
@@ -174,5 +185,6 @@ def paged_prefill_chunk_update_and_attend(cache: dict, q, k_new, v_new, pos,
                 cgv.reshape(b, seq, *cgv.shape[3:]), cke, cve, pos + t + 1,
                 backend=backend))
         out = torch.stack(outs, dim=1)
-    return out, {"k_pages": k_pages, "v_pages": v_pages,
-                 "k_exp": k_exp, "v_exp": v_exp}
+    return backend.gather_heads(out, n_heads), {
+        "k_pages": k_pages, "v_pages": v_pages, "k_exp": k_exp,
+        "v_exp": v_exp}

@@ -56,8 +56,8 @@ def _check_single_device(tcfg: TrainConfig):
     if tcfg.compress_dcn_grads:
         raise NotImplementedError(
             "compress_dcn_grads is the JAX trainer's INT8 cross-pod "
-            "gradient psum; the port trains on one device (ROADMAP queue "
-            "9, dist)")
+            "gradient psum; the port trains on one device until the dist "
+            "training slice (ROADMAP queue 1)")
 
 
 # ---------------------------------------------------------------------------

@@ -260,7 +260,7 @@ def _deployed_linear(spec: QuantConfig, k=48, n=24, seed=0):
 
 
 def test_backend_registry():
-    assert available_backends() == ("auto", "cuda", "oracle")
+    assert available_backends() == ("auto", "cuda", "oracle", "sharded")
     assert get_backend().name == "auto"
     assert get_backend("oracle") is get_backend(get_backend("oracle"))
     with pytest.raises(KeyError, match="known"):

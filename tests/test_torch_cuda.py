@@ -62,6 +62,13 @@ machine without JAX:
   card; ``--backend-parity`` under ``apsq`` corrects the roofline from
   kernel 1's ``cuda_us``; the search's round trip on ``seamless-smoke``
   (``encode`` + ``decode_step(enc_out=)``) ``ok`` on the card.
+* Tensor- and expert-parallel GEMMs (``dist.tp``): two spawned ranks on
+  the one card over gloo give the unsharded kernel's output bit for bit
+  at TinyLlama's FFN shapes (APSQ column-parallel, PSQ K-shards through
+  the W8A8 expert kernel, W8A8 K-shards with an int32 all-reduce) and
+  at OLMoE's expert banks (APSQ and W8A8, expert-parallel), on both
+  wires; the three collectives on a one-rank NCCL group with int8 and
+  int32 CUDA tensors (NCCL over several ranks needs several GPUs).
 """
 import numpy as np
 import pytest
@@ -1428,3 +1435,105 @@ def test_encdec_roundtrip_report_on_card(no_tf32):
     assert rt["decode"]["oracle"] == rt["decode"]["cuda"]
     assert rt["serving_parity"] is True and rt["ok"] is True
     assert _build.launch_counts.get("apsq_matmul_m1", 0) > 0
+
+
+# ---------------------------------------------------------------------------
+# Tensor- and expert-parallel GEMMs (repro_torch.dist.tp) on the card
+# ---------------------------------------------------------------------------
+
+def _tp_cases(dev):
+    """TinyLlama's FFN ``wi`` (M=8, K=2048, N=5632) under APSQ (gs=2,
+    n_p=8, per-column exponents), PSQ (gs = n_p = 8) and W8A8, and OLMoE's
+    expert bank (E=64, M=2, K=2048, N=1024) under APSQ and W8A8."""
+    gen = torch.Generator(device="cpu").manual_seed(27)
+    x = torch.randint(-128, 128, (8, 2048), generator=gen, dtype=torch.int8)
+    w = torch.randint(-128, 128, (2048, 5632), generator=gen,
+                      dtype=torch.int8)
+    xe = torch.randint(-128, 128, (64, 2, 2048), generator=gen,
+                       dtype=torch.int8)
+    we = torch.randint(-128, 128, (64, 2048, 1024), generator=gen,
+                       dtype=torch.int8)
+    cases = {}
+    for name, n_p, gs in (("apsq", 8, 2), ("psq", 8, 8)):
+        e = ref.choose_exps(x, w, n_p=n_p, gs=gs)
+        cases[name] = (False, x, w, e[:, None].expand(n_p, 5632).contiguous(),
+                       gs)
+    cases["w8a8"] = (False, x, w, None, 1)
+    ee = torch.stack([ref.choose_exps(xe[i], we[i], n_p=8, gs=2)
+                      for i in range(64)])
+    cases["expert_apsq"] = (True, xe, we, ee, 2)
+    cases["expert_w8a8"] = (True, xe, we, None, 1)
+    return {k: (ex, *(None if t is None else t.to(dev) for t in ts), gs)
+            for k, (ex, *ts, gs) in cases.items()}
+
+
+def _tp_rank(rank, world, init, out_dir):
+    """One of two ranks on the card: every case through
+    ``ShardedBackend`` on a (1, 2) mesh, on both wires."""
+    import os
+
+    import torch.distributed as dist
+    from repro_torch.exec import ShardedBackend
+    from repro_torch.launch.mesh import make_smoke_mesh
+    dist.init_process_group("gloo", init_method=init, rank=rank,
+                            world_size=world)
+    mesh = make_smoke_mesh((1, world))
+    out = {"transport": (mesh.backend, mesh.shared_device)}
+    for name, (expert, x, w, e, gs) in _tp_cases(mesh.device).items():
+        for wire in ("int8", "fp32"):
+            be = ShardedBackend(mesh=mesh, inner="cuda", wire=wire)
+            y = (be.int_expert_gemm if expert else be.int_gemm)(x, w, e,
+                                                               gs=gs)
+            out[(name, wire)] = y.cpu()
+    out["launches"] = dict(_build.launch_counts)
+    torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_sharded_gemms_two_ranks_on_one_card_bit_exact(cuda, tmp_path):
+    import torch.multiprocessing as mp
+    from repro_torch.exec import get_backend
+    mp.start_processes(_tp_rank, args=(2, f"file://{tmp_path}/rdv",
+                                       str(tmp_path)),
+                       nprocs=2, start_method="spawn")
+    ranks = [torch.load(tmp_path / f"rank{r}.pt", weights_only=False)
+             for r in range(2)]
+    one = get_backend("cuda")
+    for r in ranks:
+        assert r["transport"] == ("gloo", True)     # two ranks, one card
+        for k in ("apsq_matmul", "baseline_matmul", "apsq_expert_matmul",
+                  "baseline_expert_matmul"):
+            assert r["launches"][k] > 0, k
+    for name, (expert, x, w, e, gs) in _tp_cases(cuda).items():
+        want = (one.int_expert_gemm if expert else one.int_gemm)(
+            x, w, e, gs=gs).cpu()
+        for wire in ("int8", "fp32"):
+            for r in ranks:
+                assert torch.equal(r[(name, wire)], want), (name, wire)
+
+
+@pytest.mark.cuda
+def test_nccl_collectives_one_rank(cuda):
+    """The tp collectives on a one-rank NCCL group, int8 and int32 CUDA
+    tensors: the call forms and dtypes NCCL takes (over several ranks
+    NCCL needs a GPU each, which the card machine does not have)."""
+    import torch.distributed as dist
+    from repro_torch.dist import tp
+    from repro_torch.launch.mesh import Mesh, make_smoke_mesh
+    if dist.is_initialized():
+        pytest.skip("a process group is already initialized")
+    mesh = make_smoke_mesh((1, 1))
+    try:
+        assert (mesh.backend, mesh.shared_device) == ("nccl", False)
+        group = dist.new_group([0], backend="nccl")
+        one = Mesh(shape={"model": 1}, rank=0, coords={"model": 0},
+                   groups={"model": group}, backend="nccl", device=cuda)
+        for dtype in (torch.int8, torch.int32):
+            t = torch.arange(-6, 6, device=cuda).to(dtype).reshape(3, 4)
+            assert torch.equal(tp._all_gather(one, "model", t, 1), t)
+            assert torch.equal(tp._reduce_scatter(one, "model", t, 1), t)
+            assert torch.equal(tp._all_reduce(one, "model", t.clone()), t)
+    finally:
+        dist.destroy_process_group()

@@ -256,8 +256,8 @@ def test_kernel_wrappers_refuse_tensors_without_data():
 def test_one_device_only():
     with pytest.raises(NotImplementedError, match="dist"):
         make_production_mesh(multi_pod=True)
-    with pytest.raises(NotImplementedError, match="dist"):
-        make_smoke_mesh()
+    with pytest.raises(ValueError, match="needs 2 devices"):
+        make_smoke_mesh((1, 2), device="cpu")     # this process alone
     with pytest.raises(NotImplementedError, match="dist"):
         dryrun.main(["--arch", "tinyllama-1.1b", "--compress"])
     with pytest.raises(SystemExit):

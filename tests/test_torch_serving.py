@@ -355,3 +355,88 @@ def test_entry_points_need_an_explicit_cpu_device(port_model):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         init_paged_decode_state(cfg, 1, page_size=4, n_pages=4)
     assert QuantConfig.w8a8().enabled
+
+
+# ---------------------------------------------------------------------------
+# PSUM exponents where the calibrated magnitude sits at a power of two
+# ---------------------------------------------------------------------------
+
+_SQRT127 = np.float32(np.sqrt(127.0))
+
+
+def _w_for_mags(target: np.float32) -> np.float32:
+    """A float32 weight w with ``2 w / sqrt(127)`` == ``target`` in
+    float32: the PSUM magnitude ``calibrate_dense`` computes for a
+    running sum of w (one row of ones)."""
+    w = np.float32(target * _SQRT127 / 2)
+    for _ in range(64):
+        m = np.float32(np.float32(2) * w) / _SQRT127
+        if m == target:
+            return w
+        w = np.nextafter(w, np.float32(np.inf if m < target else -np.inf))
+    raise AssertionError(f"no float32 weight gives mags {target}")
+
+
+@pytest.mark.parametrize("e", [-7, -1, 0, 3, 9])
+@pytest.mark.parametrize("where", ["on", "ulp_above", "ulp_below"])
+def test_psum_exponents_at_a_power_of_two_match_jax(e, where):
+    """One layer (K=4, n_p=2: tiles w0 + w1 and w2 + w3 against a row of
+    ones, w1 = 0, w2 = w3 = 0.3 w0) whose first tile's PSUM magnitude
+    ``mags`` is exactly 2^e or one float32 ulp either side; ``aw`` lies
+    far from a power of two.  Both packages calibrate it (the same
+    float32 ``mags``; ``ap`` the float log2 of it) and export it: the
+    port's ``psum_exps`` equal JAX's.  One ulp below 2^e (|e| >= 2) the
+    float32 log2 rounds up to e on both sides, so ``floor(ap)`` is e
+    where the exact exponent of ``mags`` is e - 1: an exact
+    ``floor_log2(mags)`` on the port's side alone would break the
+    agreement."""
+    p = np.float32(2.0) ** e
+    target = {"on": p, "ulp_above": np.nextafter(p, np.float32(np.inf)),
+              "ulp_below": np.nextafter(p, np.float32(0))}[where]
+    w0 = _w_for_mags(target)
+    w = np.array([[w0], [0], [0.3 * w0], [0.3 * w0]], np.float32)
+    x = np.ones((1, 4), np.float32)
+    from repro.core.layers import calibrate_dense as j_calibrate_dense
+    from repro.core.layers import quant_params_init as j_qp_init
+    from repro_torch.core import calibrate_dense, quant_params_init
+    tq = calibrate_dense(quant_params_init(torch.from_numpy(w),
+                                           QuantConfig.apsq(gs=1, n_p=2),
+                                           name="l"),
+                         torch.from_numpy(x), torch.from_numpy(w))
+    jq = j_calibrate_dense(j_qp_init(jnp.asarray(w), JQC.apsq(gs=1, n_p=2),
+                                     name="l"),
+                           jnp.asarray(x), jnp.asarray(w),
+                           JQC.apsq(gs=1, n_p=2))
+    got = export_quantized({"l": {"w": torch.from_numpy(w), "qp": tq}})[0]
+    want = j_export_quantized({"l": {"w": jnp.asarray(w), "qp": jq}})[0]
+    got, want = got["l"]["qp"], want["l"]["qp"]
+    # the float log2s may differ in their last bit (e=3, one ulp above:
+    # ATen 3.0000002, XLA 3.0), never in their floor
+    floors = np.floor(float(tq.ap[0])), np.floor(float(jq.ap[0]))
+    rounds_up = where == "ulp_below" and abs(e) >= 2
+    assert floors == ((e, e) if where != "ulp_below" or rounds_up
+                      else (e - 1, e - 1))
+    for f in ("w_codes", "ax_exp", "aw_exp", "psum_exps"):
+        np.testing.assert_array_equal(getattr(got, f).numpy(),
+                                      np.asarray(getattr(want, f)), f)
+
+
+@pytest.mark.parametrize("e", [-7, 3, 9])
+def test_weight_exponent_one_ulp_below_a_power_of_two(e):
+    """Where a weight scale ``aw`` lies one float32 ulp below 2^e
+    (|e| >= 2) the exports part: the port takes the exact exponent
+    ``floor_log2(aw)`` = e - 1 (``core.po2``), JAX ``floor(log2(aw))``
+    of a float32 log2 that rounds up to e.  Recorded, not changed
+    (ROADMAP queue 3)."""
+    target = np.nextafter(np.float32(2.0) ** e, np.float32(0))
+    w = np.full((2, 1), _w_for_mags(target), np.float32)   # aw == target
+    from repro.core.layers import quant_params_init as j_qp_init
+    from repro_torch.core import quant_params_init
+    tq = quant_params_init(torch.from_numpy(w), QuantConfig.w8a8(),
+                           name="l")
+    jq = j_qp_init(jnp.asarray(w), JQC.w8a8(), name="l")
+    assert float(tq.aw[0]) == float(np.asarray(jq.aw)[0]) == target
+    got = export_quantized({"l": {"w": torch.from_numpy(w), "qp": tq}})[0]
+    want = j_export_quantized({"l": {"w": jnp.asarray(w), "qp": jq}})[0]
+    assert got["l"]["qp"].aw_exp.tolist() == [e - 1]
+    assert np.asarray(want["l"]["qp"].aw_exp).tolist() == [e]
